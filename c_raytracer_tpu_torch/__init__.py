@@ -9,9 +9,12 @@ PyTorch version beside it, which is what runs for tensors on the CPU.
 
 This package imports ``torch`` and ``numpy`` and never ``jax``.
 
-Slice ported so far: the dense opaque render path (spheres and planes, a
-sphere emitter, chain integrator, ambient GI), forward only.  Everything
-else raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+Slices ported so far, forward only: the dense opaque render path (spheres
+and planes, chain integrator, ambient GI) and the opaque mesh path
+(triangles, dense or through the Morton-cluster sweep with the visit-order
+kernel, shared-origin or per-ray soft shadows, sphere and triangle
+emitters).  Everything else raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.
 """
 
 __version__ = "0.1.0"

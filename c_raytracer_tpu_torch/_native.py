@@ -1,10 +1,11 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
-At first use, nvcc compiles every ``csrc/*.cu`` into one shared library for
-``sm_90a`` with a plain C interface, which ``ctypes`` loads.  The library
-lands in ``_build/`` (listed in ``.gitignore``) under a name that carries a
-hash of the sources and flags, so an edited source rebuilds.  Nothing is
-built or loaded when this module is imported.
+At first use, nvcc compiles each ``csrc/*.cu`` into a shared library of its
+own for ``sm_90a`` with a plain C interface, which ``ctypes`` loads; the
+compilers of all sources run at the same time.  Each library lands in
+``_build/`` (listed in ``.gitignore``) under a name that carries a hash of
+its source and the flags, so an edited source rebuilds.  Nothing is built
+or loaded when this module is imported.
 
 A missing ``nvcc`` is an error: the kernel wrappers call ``lib()`` only for
 CUDA tensors, and there is no fallback for those.
@@ -13,12 +14,12 @@ CUDA tensors, and there is no fallback for those.
 from __future__ import annotations
 
 import ctypes
-import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+import types
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -36,13 +37,21 @@ _lock = threading.Lock()
 _lib = None
 
 _PTR = ctypes.c_void_p  # every pointer and the stream: a 64-bit address
+_INT = ctypes.c_int
+# C entry point -> (source in csrc/, argument types); each returns an int
 _SIGNATURES = {
     # (out, n, k0, k1, stream)
-    "crt_philox_uniform": (_PTR, ctypes.c_int64, ctypes.c_uint32,
-                           ctypes.c_uint32, _PTR),
+    "crt_philox_uniform": ("philox.cu", (_PTR, ctypes.c_int64,
+                                         ctypes.c_uint32, ctypes.c_uint32,
+                                         _PTR)),
     # (u, px, scal_f, out, P, lc, n_valid, ns, npl, egid, phong,
     #  atten_kind, n_scal, stream)
-    "crt_fused_shadow_chunk": (_PTR,) * 4 + (ctypes.c_int,) * 9 + (_PTR,),
+    "crt_fused_shadow_chunk": ("fused_shadow.cu",
+                               (_PTR,) * 4 + (_INT,) * 9 + (_PTR,)),
+    # (o, d, lo, hi, count_max_dist or NULL, cids, entry, spill, R, K, V,
+    #  stream)
+    "crt_visit_order": ("visit_order.cu", (_PTR,) * 8 + (_INT,) * 3 + (_PTR,)),
+    "crt_visit_order_max_visits": ("visit_order.cu", ()),
 }
 
 
@@ -58,46 +67,64 @@ def _nvcc() -> str:
                        "kernels of c_raytracer_tpu_torch cannot be built")
 
 
-def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+def sources() -> list[str]:
+    """The kernel sources, one library each."""
+    return sorted({src for src, _ in _SIGNATURES.values()})
 
 
-def library_path() -> str:
+def library_path(source: str) -> str:
+    """Where the library of ``source`` (a file name in csrc/) is built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        with open(src, "rb") as f:
-            h.update(os.path.basename(src).encode() + f.read())
-    return os.path.join(BUILD_DIR, f"libcrt_cuda_{h.hexdigest()[:16]}.so")
+    with open(os.path.join(_CSRC, source), "rb") as f:
+        h.update(source.encode() + f.read())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"libcrt_{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the kernels if the library for these sources is missing;
-    returns its path."""
-    path = library_path()
-    if not os.path.exists(path):
+def build() -> dict[str, str]:
+    """Compile every library that is missing for the current sources, all
+    compilers at once; returns {source: library path}."""
+    paths = {src: library_path(src) for src in sources()}
+    missing = {src: p for src, p in paths.items() if not os.path.exists(p)}
+    if missing:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-            capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, path)
-    return path
+        nvcc = _nvcc()
+        procs = {}
+        for src, path in missing.items():
+            tmp = f"{path}.{os.getpid()}.tmp"
+            procs[src] = (tmp, path, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for src, (tmp, path, proc) in procs.items():
+            try:
+                out, _ = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src} (nvcc {proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, path)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return paths
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def lib() -> types.SimpleNamespace:
+    """The kernels' C entry points, by name (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
+            handles = {src: ctypes.CDLL(path)
+                       for src, path in build().items()}
+            fns = {}
+            for name, (src, argtypes) in _SIGNATURES.items():
+                fn = getattr(handles[src], name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
-            _lib = handle
+                fns[name] = fn
+            _lib = types.SimpleNamespace(**fns)
         return _lib
 
 

@@ -1,0 +1,102 @@
+"""Cluster visit order (kernel 3), as in
+``c_raytracer_tpu.accel.pallas_visit``.
+
+For every ray, the slab test against every cluster AABB and the V nearest
+overlapped clusters in ascending entry distance, ties to the lowest cluster
+id, with the per-ray spill count (overlaps beyond V) — the body of
+``c_raytracer_tpu/accel/traverse.py`` ``_visit_order``.
+
+* ``visit_order`` — on a CUDA tensor it launches ``csrc/visit_order.cu``,
+  which replaces the Pallas kernel ``visit_order_fused`` / ``_kernel``;
+  on a CPU tensor it runs the plain version.
+* ``visit_order_reference`` — the plain PyTorch version, the XLA body in
+  torch; it orders with a stable sort, so ties keep the lowest id.
+
+The JAX package keeps its kernel behind ``RenderConfig.pallas_visit``
+(default "off"), a decision about its TPU toolchain, and its kernel route
+reports spill 0.  Here the kernel is the visit order on the card whatever
+``pallas_visit`` says: both routes give the same lists, and the kernel
+counts the exact spill of the plain version, ``count_max_dist`` included,
+so the always-on truncation guard stays on.
+
+Shapes: o, d (R, 3) and lo, hi (K, 3) float32; count_max_dist (R,) or
+None.  Returns cids (R, V) int32, entry (R, V) float32 (FLT_MAX in empty
+slots; ``ok = entry < FLT_MAX``) and spill (R,) int32.  Empty slots may
+hold any cid in [0, K).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from c_raytracer_tpu_torch import _native
+
+FLT_MAX = float(np.finfo(np.float32).max)
+
+
+def visit_order_reference(o, d, lo, hi, V: int, count_max_dist=None):
+    """Plain PyTorch version of kernel 3, bit-exact with it."""
+    dd = torch.where(torch.abs(d) < 1e-30, 1e-30, d)
+    inv = 1.0 / dd
+    tmin = tmax = None
+    # one axis at a time: (R, K) temporaries; max/min are exact in any order
+    for c in range(3):
+        t1 = (lo[None, :, c] - o[:, c, None]) * inv[:, c, None]
+        t2 = (hi[None, :, c] - o[:, c, None]) * inv[:, c, None]
+        lo_t, hi_t = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        tmin = lo_t if tmin is None else torch.maximum(tmin, lo_t)
+        tmax = hi_t if tmax is None else torch.minimum(tmax, hi_t)
+    entry = torch.clamp(tmin, min=0.0)
+    overlap = tmax >= entry
+    counted = (overlap if count_max_dist is None
+               else overlap & (entry < count_max_dist[:, None]))
+    spill = torch.clamp(counted.sum(-1) - V, min=0).to(torch.int32)
+    key = torch.where(overlap, entry, FLT_MAX)
+    vals, idx = torch.sort(key, dim=1, stable=True)
+    return idx[:, :V].to(torch.int32), vals[:, :V].contiguous(), spill
+
+
+def visit_order(o, d, lo, hi, V: int, count_max_dist=None):
+    """(cids, entry, spill) of the V nearest clusters per ray: kernel 3 for
+    CUDA tensors, the plain version for CPU tensors."""
+    V, K = int(V), lo.shape[0]
+    if not 1 <= V <= K:
+        raise ValueError(f"visit_order: V={V} outside 1..K={K}")
+    if o.device.type == "cpu":
+        return visit_order_reference(o, d, lo, hi, V, count_max_dist)
+    if o.device.type != "cuda":
+        raise ValueError(f"visit_order: unsupported device {o.device}")
+    R = o.shape[0]
+    want = {"o": (o, (R, 3)), "d": (d, (R, 3)), "lo": (lo, (K, 3)),
+            "hi": (hi, (K, 3))}
+    if count_max_dist is not None:
+        want["count_max_dist"] = (count_max_dist, (R,))
+    for name, (x, shape) in want.items():
+        if x.device != o.device or x.dtype != torch.float32:
+            raise ValueError(f"visit_order: {name} must be float32 on "
+                             f"{o.device}, got {x.dtype} on {x.device}")
+        if tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"visit_order: {name} must be contiguous "
+                             f"{shape}, got {tuple(x.shape)}")
+    fns = _native.lib()
+    v_max = fns.crt_visit_order_max_visits()
+    if V > v_max:
+        raise ValueError(f"visit_order: V={V} above the kernel's largest "
+                         f"list, {v_max}")
+    cids = torch.empty((R, V), dtype=torch.int32, device=o.device)
+    entry = torch.empty((R, V), dtype=torch.float32, device=o.device)
+    spill = torch.empty((R,), dtype=torch.int32, device=o.device)
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        err = fns.crt_visit_order(
+            o.data_ptr(), d.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            None if count_max_dist is None else count_max_dist.data_ptr(),
+            cids.data_ptr(), entry.data_ptr(), spill.data_ptr(), R, K, V,
+            stream)
+    _native.check(err, "visit_order")
+    visit_order.launches += 1
+    return cids, entry, spill
+
+
+visit_order.launches = 0

@@ -1,0 +1,468 @@
+"""Cluster traversal for mesh scenes, as in ``c_raytracer_tpu.accel.traverse``.
+
+The reference walks a binary LBVH per ray (accel.c:322-387).  The cluster
+structure replaces the tree: Morton-ordered triangles grouped into fixed
+blocks of C (build.py), each with an AABB re-fit from the vertices every
+frame.  Per batch of rays:
+
+1. the visit order (kernel 3, ``pallas_visit.visit_order``): the slab test
+   of every ray against every cluster AABB and each ray's V nearest
+   overlapped clusters, with the count of overlaps beyond V (``spill``);
+2. a loop over the V visit slots: gather each ray's cluster block and run
+   Möller-Trumbore on its C lanes, folding the running best hit (closest)
+   or the blocked / kt-tint accumulators (shadows).
+
+Soft shadows of opaque scenes go through the shared-origin sweep instead:
+one conservative visit list per pixel (``shadow_visit_order``), a
+per-pixel shortlist of candidate triangles (``shadow_shortlist``), and
+every light sample streamed against that shortlist
+(``any_hit_tint_shortlist``), or against the visited blocks when the
+shortlist is off (``any_hit_tint_shared``).
+
+Each function keeps the JAX function's semantics and fold order.  Every
+selection the JAX package makes with ``lax.top_k`` or with its iterative
+min-and-first-index extraction is a stable sort here: the same ascending
+order with ties to the lowest index (``torch.topk`` promises no tie
+order).  The JAX ``lax.cond`` that skips dead visit steps becomes, with
+``dead_skip``, one read of the batch's longest live list per sweep — not a
+host sync per visit; without it every visit runs, as the JAX opaque auto
+does.  Forward only: the port has no gradients yet (ROADMAP: gradients).
+
+Not ported yet, and refused where they would be taken (accel/intersect.py):
+``_visit_order_super``, ``pack_clusters_sharded``,
+``shadow_union_visit_order`` with ``_k_smallest``, and the diagnostics
+``spill_counts`` and ``shadow_spill_counts``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from c_raytracer_tpu_torch.accel import pallas_visit
+from c_raytracer_tpu_torch.core import v3 as v3m
+
+FLT_MAX = float(np.finfo(np.float32).max)
+
+# packed field rows in ClusterSet.blk: v0, e1, e2, n (3 each), eps; scenes
+# with transparent materials append kt (3) and a 0/1 transparency flag
+_F_V0, _F_E1, _F_E2, _F_N, _F_EPS, _F_KT, _F_TRANSP = 0, 3, 6, 9, 12, 13, 16
+_NF_OPAQUE = 13
+_NF_TRANSP = 17
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterSet:
+    """Morton-ordered triangle clusters, packed for per-ray block gathers."""
+
+    blk: torch.Tensor    # (K, 13|17, C) packed triangle fields
+    lo: torch.Tensor     # (K, 3) cluster AABB min, inflated by eps
+    hi: torch.Tensor     # (K, 3) cluster AABB max, inflated by eps
+    gid0: int            # global prim id of triangle 0 (= n_spheres)
+    flat: torch.Tensor   # (K·C, 13|17) the same fields, triangle-major
+    bound: torch.Tensor  # (K, C, 4) per-triangle bounding sphere (centroid,
+    #                      radius; padding lanes get radius -1)
+
+    @property
+    def has_transp(self) -> bool:
+        """Whether the kt/transparency rows are packed."""
+        return self.blk.shape[-2] == _NF_TRANSP
+
+
+def _sum3(x):
+    """Sum over a trailing axis of 3, left to right."""
+    return x[..., 0] + x[..., 1] + x[..., 2]
+
+
+def _pack_from_arrays(v0, e1, e2, n, eps, valid, kt, transp, C: int):
+    """Pack (M, 3) triangle fields into clusters of C.  Rows where
+    ``valid`` is False, and the padding to whole clusters, are dead: eps 1
+    (Möller-Trumbore's parallel test rejects them) and bounding radius -1.
+    Returns (blk, lo, hi, flat, bound)."""
+    M = v0.shape[0]
+    K = max(1, -(-M // C))
+    pad = K * C - M
+
+    def p(x, fill):
+        if pad:
+            x = torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
+        return x
+
+    v0, e1, e2, n = p(v0, 0.0), p(e1, 0.0), p(e2, 0.0), p(n, 0.0)
+    valid = p(valid, False)
+    eps = torch.where(valid, p(eps, 1.0), 1.0)
+
+    rows = [v0, e1, e2, n, eps[:, None]]
+    if kt is not None:
+        tf = valid & p(transp, False)
+        rows += [p(kt, 0.0), tf.to(torch.float32)[:, None]]
+    flat = torch.cat(rows, dim=1)                       # (K*C, F)
+    blk = flat.reshape(K, C, flat.shape[1]).transpose(1, 2).contiguous()
+
+    # per-triangle bounding spheres for shortlist scoring (selection only)
+    v1, v2 = v0 + e1, v0 + e2
+    cen = (v0 + v1 + v2) * float(np.float32(1.0 / 3.0))
+    r2 = torch.maximum(torch.maximum(_sum3((v0 - cen) ** 2),
+                                     _sum3((v1 - cen) ** 2)),
+                       _sum3((v2 - cen) ** 2))
+    rad = torch.where(valid, v3m.sqrt(r2) + eps, -1.0)
+    bound = torch.cat([cen, rad[:, None]], -1).reshape(K, C, 4)
+
+    # AABB refit: per-triangle min/max over its 3 vertices, padding masked,
+    # reduced per cluster, inflated by the cluster's largest epsilon (the
+    # reference inflates node slabs by node->epsilon, accel.c:120-156)
+    verts = torch.stack([v0, v1, v2], dim=1)            # (K*C, 3, 3)
+    vm = valid[:, None]
+    vmin = torch.where(vm, verts.amin(1), FLT_MAX).reshape(K, C, 3).amin(1)
+    vmax = torch.where(vm, verts.amax(1), -FLT_MAX).reshape(K, C, 3).amax(1)
+    ceps = torch.where(valid, eps, 0.0).reshape(K, C).amax(1)[:, None]
+    return blk, vmin - ceps, vmax + ceps, flat, bound
+
+
+def pack_clusters(ds, static, cluster_size: int) -> ClusterSet:
+    """Pack the device triangle tables into clusters of ``cluster_size``
+    and re-fit the cluster AABBs from the current vertices."""
+    ns = static.n_spheres
+    nt = ds.tri_v0.shape[0]
+    dev = ds.tri_v0.device
+    mat_np = np.asarray(static.material_index[ns:ns + nt], np.int64)
+    transp_np = np.asarray(static.is_transparent, bool)[mat_np]
+    kt = transp = None
+    if transp_np.any():
+        mat = torch.as_tensor(mat_np, device=dev)
+        kt = ds.materials.kt[mat]                            # (nt, 3)
+        transp = torch.as_tensor(transp_np, device=dev)
+    blk, lo, hi, flat, bound = _pack_from_arrays(
+        ds.tri_v0, ds.tri_e1, ds.tri_e2, ds.tri_n, ds.tri_eps,
+        torch.ones(nt, dtype=torch.bool, device=dev), kt, transp,
+        cluster_size)
+    return ClusterSet(blk=blk, lo=lo, hi=hi, gid0=ns, flat=flat, bound=bound)
+
+
+def _k_smallest_payload(key, payload, V):
+    """The V smallest per row of ``key`` (R, K), ascending, ties to the
+    lowest index, with the int ``payload`` of each picked entry: (vals,
+    payloads), each (R, V).  The JAX package extracts by V passes of
+    min + first index + mask; a stable sort gives the same entries wherever
+    the value is below FLT_MAX (its callers mask the rest)."""
+    vals, pos = torch.sort(key, dim=1, stable=True)
+    pos = pos[:, :V]
+    return vals[:, :V], torch.gather(payload, 1, pos)
+
+
+def _visit_order(cs: ClusterSet, o, d, visits: int, count_max_dist=None):
+    """The slab test of every ray against every cluster, sorted by entry
+    distance: (cids (R, V) int64, ok (R, V), entry (R, V), spill (R,)).
+
+    ``spill`` counts each ray's overlapping clusters beyond the budget V
+    (spill == 0 proves the sweep saw every overlapped cluster); with
+    ``count_max_dist`` (R,) only clusters entered before that distance
+    count.  Kernel 3 on the card, its plain version on the CPU
+    (accel/pallas_visit.py), whatever ``RenderConfig.pallas_visit`` says:
+    both give the same lists and the exact spill."""
+    K = cs.lo.shape[0]
+    V = max(1, min(visits, K))   # visits=0 would make the sweep empty
+    cids, entry, spill = pallas_visit.visit_order(
+        o.contiguous(), d.contiguous(), cs.lo, cs.hi, V,
+        None if count_max_dist is None else count_max_dist.contiguous())
+    return cids.long(), entry < FLT_MAX, entry, spill
+
+
+def _visit_limit(ok, dead_skip: bool) -> int:
+    """Visit slots to run: all of them, or with ``dead_skip`` the batch's
+    longest live list (lists are front-packed; one host read per sweep)."""
+    if not dead_skip or ok.shape[0] == 0:
+        return ok.shape[1]
+    return int(ok.sum(1).max())
+
+
+def _mt_block(blk, o, d):
+    """Möller-Trumbore on a gathered block: blk (R, F, C), o/d (R, 3).
+    Exact accept rules of object.c:422-441.  Returns (t, hit) each (R, C)."""
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    v0x, v0y, v0z = blk[:, _F_V0], blk[:, _F_V0 + 1], blk[:, _F_V0 + 2]
+    e1x, e1y, e1z = blk[:, _F_E1], blk[:, _F_E1 + 1], blk[:, _F_E1 + 2]
+    e2x, e2y, e2z = blk[:, _F_E2], blk[:, _F_E2 + 1], blk[:, _F_E2 + 2]
+    eps = blk[:, _F_EPS]
+
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    a = e1x * hx + e1y * hy + e1z * hz
+    parallel = (a < eps) & (a > -eps)
+    f = 1.0 / torch.where(parallel, 1.0, a)
+    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+    u = f * (sx * hx + sy * hy + sz * hz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = f * (dx * qx + dy * qy + dz * qz)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    hit = (~parallel & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1)
+           & (t > eps))
+    return t, hit
+
+
+def _first_min(t):
+    """(min, index of its first occurrence) over the last axis."""
+    tmin = t.amin(-1)
+    iota = torch.arange(t.shape[-1], device=t.device)
+    first = torch.where(t == tmin[..., None], iota, t.shape[-1]).amin(-1)
+    return tmin, first.clamp(max=t.shape[-1] - 1)
+
+
+def _closest_scan(cs, cids, ok, entry, o, d, bt0, bg0, dead_skip: bool):
+    """The visit loop of ``closest_hit_clusters``: fold each ray's sorted
+    visit list into (best_t, best_gid)."""
+    C = cs.blk.shape[2]
+    bt, bg = bt0, bg0
+    for v in range(_visit_limit(ok, dead_skip)):
+        cid = cids[:, v]
+        # a cluster entered beyond the running best cannot beat it: sorted
+        # entries make every later visit farther (accel.c:341-352 pruning)
+        live = ok[:, v] & (entry[:, v] < bt)
+        t, hit = _mt_block(cs.blk[cid], o, d)
+        t = torch.where(hit & live[:, None], t, FLT_MAX)
+        tmin, lane = _first_min(t)
+        better = tmin < bt
+        bt = torch.where(better, tmin, bt)
+        bg = torch.where(better, cs.gid0 + cid * C + lane, bg)
+    return bt, bg
+
+
+def closest_hit_clusters(cs: ClusterSet, o, d, best, *, visits: int,
+                         dead_skip: bool = False, with_spill: bool = False):
+    """Fold the nearest ``visits`` clusters' triangles into ``best``.
+
+    o, d: (R, 3); best: (t (R,), gid (R,), normal (R, 3)) from the
+    sphere/plane pre-pass.  Returns the updated best; with ``with_spill``
+    also the per-ray (R,) count of overlapped clusters beyond the budget
+    (spill == 0 proves the sweep exhaustive; best-t pruning usually masks
+    spill > 0).  The loop carries (t, gid) only; the winner's normal is
+    gathered once after it."""
+    C = cs.blk.shape[2]
+    cids, ok, entry, spill = _visit_order(cs, o, d, visits)
+    bt0, bg0, bn0 = best
+    bt, bg = _closest_scan(cs, cids, ok, entry, o, d, bt0, bg0, dead_skip)
+    won = bg != bg0                        # a triangle beat the pre-pass
+    ti = torch.clamp(bg - cs.gid0, 0, cs.blk.shape[0] * C - 1)
+    nrm = cs.blk[ti // C, _F_N:_F_N + 3, ti % C]
+    bn = torch.where(won[:, None], nrm, bn0)
+    if with_spill:
+        return bt, bg, bn, spill
+    return bt, bg, bn
+
+
+def any_hit_tint_clusters(cs: ClusterSet, o, d, max_dist, exclude_gid, acc,
+                          *, visits: int, dead_skip: bool = False,
+                          with_spill: bool = False):
+    """Fold cluster triangles into the shadow accumulators (blocked (R,),
+    tint (R, 3)) — the per_ray shadow mode.
+
+    One product for both kinds of blocker: an in-range blocker multiplies
+    the tint by kt if transparent and by 0 if opaque (accel.c:360-387), so
+    a scene with no transparent material reduces to one any-reduce with no
+    material data.  Visits are nearest first, so opaque blocking is found
+    even past the budget.  ``with_spill``: also the per-ray count of
+    in-range (entry < max_dist) overlapped clusters beyond the budget."""
+    C = cs.blk.shape[2]
+    cids, ok, entry, spill = _visit_order(
+        cs, o, d, visits, count_max_dist=max_dist if with_spill else None)
+    blocked, tint = acc
+    lanes = torch.arange(C, device=o.device)
+    for v in range(_visit_limit(ok, dead_skip)):
+        cid = cids[:, v]
+        live = ok[:, v] & (entry[:, v] < max_dist)
+        blk = cs.blk[cid]
+        t, hit = _mt_block(blk, o, d)
+        gid = cs.gid0 + cid[:, None] * C + lanes
+        in_range = (hit & live[:, None] & (t < max_dist[:, None])
+                    & (gid != exclude_gid[:, None]))
+        if not cs.has_transp:
+            blocked = blocked | in_range.any(-1)
+        else:
+            transp = blk[:, _F_TRANSP]                     # (R, C) 0/1
+            tint = tint * torch.stack(
+                [torch.where(in_range, transp * blk[:, _F_KT + c], 1.0)
+                 .prod(-1) for c in range(3)], -1)
+    if with_spill:
+        return (blocked, tint), spill
+    return blocked, tint
+
+
+def _norm3(x):
+    """Euclidean norm over a trailing axis of 3."""
+    return v3m.sqrt(_sum3(x * x))
+
+
+def shadow_visit_order(cs: ClusterSet, origin, hull_lo, hull_hi,
+                       visits: int):
+    """Visit list for a shared-origin shadow query.
+
+    All of a pixel's soft-shadow rays start at its hit point and end on
+    the emitter, so one conservative list per pixel serves every sample: a
+    cluster is a candidate iff its bounding sphere comes within s·erad of
+    the origin→emitter-centre chord at fraction s (a capsule test), nearest
+    first by distance from the origin.  Returns (cids (P, V), ok (P, V))."""
+    K = cs.lo.shape[0]
+    V = max(1, min(visits, K))
+    center = 0.5 * (cs.lo + cs.hi)                          # (K, 3)
+    half_diag = 0.5 * _norm3(cs.hi - cs.lo)                 # (K,)
+    ecenter = 0.5 * (hull_lo + hull_hi)
+    erad = 0.5 * _norm3(hull_hi - hull_lo)
+    seg = ecenter[None] - origin                            # (P, 3)
+    seglen2 = torch.clamp(_sum3(seg * seg), min=1e-30)
+    rel = [center[None, :, c] - origin[:, c, None] for c in range(3)]
+    s = torch.clamp((rel[0] * seg[:, 0, None] + rel[1] * seg[:, 1, None]
+                     + rel[2] * seg[:, 2, None]) / seglen2[:, None], 0.0, 1.0)
+    # one (P, K) residual at a time (three at once would add two (P, K)
+    # temporaries to the frame's peak memory); 0 + x is exact
+    d2 = sum_sq = 0.0
+    for c in range(3):
+        r = rel[c] - s * seg[:, c, None]
+        d2 = d2 + r * r
+        sum_sq = sum_sq + rel[c] * rel[c]
+    margin = half_diag[None] + s * erad
+    key = torch.where(d2 <= margin * margin, sum_sq, FLT_MAX)
+    vals, idx = torch.sort(key, dim=1, stable=True)
+    return idx[:, :V], vals[:, :V] < FLT_MAX
+
+
+def _mt_block_multi(blk, o, d):
+    """Möller-Trumbore of a shared origin o (P, 3) against many directions
+    d (P, S, 3) and one gathered block per pixel blk (P, F, C).  Returns
+    (t, hit) each (P, S, C); the S-independent terms (s = o - v0,
+    q = s × e1, the t numerator e2·q) are computed once per pixel."""
+    def F(i):
+        return blk[:, i, None, :]                          # (P, 1, C)
+    dx, dy, dz = d[..., 0, None], d[..., 1, None], d[..., 2, None]
+    e1x, e1y, e1z = F(_F_E1), F(_F_E1 + 1), F(_F_E1 + 2)
+    e2x, e2y, e2z = F(_F_E2), F(_F_E2 + 1), F(_F_E2 + 2)
+    eps = F(_F_EPS)
+
+    sx, sy, sz = (o[:, i, None] - blk[:, _F_V0 + i] for i in range(3))
+    qx = sy * blk[:, _F_E1 + 2] - sz * blk[:, _F_E1 + 1]
+    qy = sz * blk[:, _F_E1] - sx * blk[:, _F_E1 + 2]
+    qz = sx * blk[:, _F_E1 + 1] - sy * blk[:, _F_E1]
+    tnum = (blk[:, _F_E2] * qx + blk[:, _F_E2 + 1] * qy
+            + blk[:, _F_E2 + 2] * qz)                      # (P, C)
+
+    hx = dy * e2z - dz * e2y                               # (P, S, C)
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    a = e1x * hx + e1y * hy + e1z * hz
+    parallel = (a < eps) & (a > -eps)
+    f = 1.0 / torch.where(parallel, 1.0, a)
+    u = f * (sx[:, None] * hx + sy[:, None] * hy + sz[:, None] * hz)
+    v = f * (dx * qx[:, None] + dy * qy[:, None] + dz * qz[:, None])
+    t = f * tnum[:, None]
+    hit = (~parallel & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1)
+           & (t > eps))
+    return t, hit
+
+
+def shadow_shortlist(cs: ClusterSet, origin, cids, ok, ecenter, erad,
+                     k_short: int):
+    """Per-pixel shortlist of the ``k_short`` candidate triangles nearest
+    the origin whose bounding spheres overlap the shadow capsule.
+
+    origin: (P, 3); cids/ok: (P, V) from shadow_visit_order; ecenter (3,),
+    erad ().  Returns (blk (P, F, K) gathered triangle rows, gid (P, K)
+    global prim ids, lane_ok (P, K))."""
+    C = cs.blk.shape[2]
+    P, V = cids.shape
+    K = min(k_short, V * C)
+
+    seg = ecenter[None] - origin                            # (P, 3)
+    seglen2 = torch.clamp(_sum3(seg * seg), min=1e-30)
+    seglen = v3m.sqrt(seglen2)
+    b = cs.bound[cids]                                      # (P, V, C, 4)
+    rad = b[..., 3]
+    rel = [b[..., c] - origin[:, c, None, None] for c in range(3)]
+    sg = [seg[:, c, None, None] for c in range(3)]
+    dot = rel[0] * sg[0] + rel[1] * sg[1] + rel[2] * sg[2]  # (P, V, C)
+    dist2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2]
+    l2 = seglen2[:, None, None]
+    s = torch.clamp(dot / l2, 0.0, 1.0)
+    # the residual componentwise: the expanded form cancels for centroids
+    # near the chord
+    cx, cy, cz = (rel[c] - s * sg[c] for c in range(3))
+    d2 = cx * cx + cy * cy + cz * cz
+    # the largest chord fraction any point of the bounding sphere projects
+    # to: the capsule widens along the chord
+    s_hi = torch.clamp((dot + rad * seglen[:, None, None]) / l2, 0.0, 1.0)
+    margin = rad + s_hi * erad
+    overlap = (d2 <= margin * margin) & (rad >= 0) & ok[:, :, None]
+    scores = torch.where(overlap, dist2, FLT_MAX).reshape(P, V * C)
+    flat_ti = (cids[:, :, None] * C
+               + torch.arange(C, device=cids.device)).reshape(P, V * C)
+    vals, ti = _k_smallest_payload(scores, flat_ti, K)
+    lane_ok = vals < FLT_MAX
+    ti = torch.where(lane_ok, ti, 0)
+    blk = cs.flat[ti].transpose(1, 2)                       # (P, F, K)
+    return blk, cs.gid0 + ti, lane_ok
+
+
+def any_hit_tint_shortlist(cs: ClusterSet, origin, blk, gid, lane_ok,
+                           dirs_fn, nchunks, acc):
+    """Shared-origin soft-shadow sweep over the per-pixel shortlist.
+
+    blk (P, F, K), gid (P, K), lane_ok (P, K) from shadow_shortlist;
+    dirs_fn(chunk_i) -> (d (P, lc, 3), max_dist (P, lc), exclude_gid
+    (P, lc)).  acc: blocked (P, nchunks, lc) for opaque scenes, (blocked,
+    tint (P, nchunks, lc, 3)) else.  Returns the updated acc (a new
+    tensor; the input is not changed)."""
+    opaque = not cs.has_transp
+    blocked, tint = (acc, None) if opaque else acc
+    blocked = blocked.clone()
+    tint = None if opaque else tint.clone()
+    for chunk_i in range(nchunks):
+        d, max_dist, exclude_gid = dirs_fn(chunk_i)
+        t, hit = _mt_block_multi(blk, origin, d)           # (P, lc, K)
+        in_range = (hit & lane_ok[:, None, :] & (t < max_dist[..., None])
+                    & (gid[:, None, :] != exclude_gid[..., None]))
+        if opaque:
+            blocked[:, chunk_i] |= in_range.any(-1)
+            continue
+        transp = blk[:, _F_TRANSP]                         # (P, K) 0/1
+        tint[:, chunk_i] *= torch.stack(
+            [torch.where(in_range, (transp * blk[:, _F_KT + c])[:, None, :],
+                         1.0).prod(-1) for c in range(3)], -1)
+    return blocked if opaque else (blocked, tint)
+
+
+def any_hit_tint_shared(cs: ClusterSet, origin, cids, ok, dirs_fn, nchunks,
+                        acc, *, dead_skip: bool = False):
+    """Shared-origin soft-shadow sweep, visits outer and sample chunks
+    inner: each visited block is gathered once per pixel and every sample
+    chunk streams through it (the ``bvh_shadow_shortlist=0`` route).
+    Arguments and accumulators as in any_hit_tint_shortlist, with
+    cids/ok (P, V) from shadow_visit_order."""
+    C = cs.blk.shape[2]
+    opaque = not cs.has_transp
+    blocked, tint = (acc, None) if opaque else acc
+    blocked = blocked.clone()
+    tint = None if opaque else tint.clone()
+    lanes = torch.arange(C, device=origin.device)
+    for v in range(_visit_limit(ok, dead_skip)):
+        cid = cids[:, v]
+        live = ok[:, v]
+        blk = cs.blk[cid]                                  # (P, F, C)
+        gid = cs.gid0 + cid[:, None] * C + lanes
+        for chunk_i in range(nchunks):
+            d, max_dist, exclude_gid = dirs_fn(chunk_i)
+            t, hit = _mt_block_multi(blk, origin, d)       # (P, lc, C)
+            in_range = (hit & live[:, None, None] & (t < max_dist[..., None])
+                        & (gid[:, None, :] != exclude_gid[..., None]))
+            if opaque:
+                blocked[:, chunk_i] |= in_range.any(-1)
+                continue
+            transp = blk[:, _F_TRANSP]                     # (P, C) 0/1
+            tint[:, chunk_i] *= torch.stack(
+                [torch.where(in_range,
+                             (transp * blk[:, _F_KT + c])[:, None, :],
+                             1.0).prod(-1) for c in range(3)], -1)
+    return blocked if opaque else (blocked, tint)

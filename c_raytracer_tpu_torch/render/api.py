@@ -14,6 +14,8 @@ import dataclasses
 
 import torch
 
+from c_raytracer_tpu_torch.accel.intersect import (AUTO_THRESHOLD,
+                                                   make_intersector)
 from c_raytracer_tpu_torch.core import rng
 from c_raytracer_tpu_torch.geometry import primitives as G
 from c_raytracer_tpu_torch.render.camera import primary_rays
@@ -22,7 +24,8 @@ from c_raytracer_tpu_torch.render.integrator import render_wavefront
 from c_raytracer_tpu_torch.scene import types as T
 from c_raytracer_tpu_torch.scene.convert import params_to_torch
 
-DENSE_TILE = 65536   # the JAX package's auto tile for dense scenes
+DENSE_TILE = 65536   # the JAX package's auto tiles: dense scenes,
+CLUSTER_TILE = 2048  # and cluster scenes (api.py:35-42 there)
 
 
 def _requires_grad(params: T.SceneParams) -> bool:
@@ -41,13 +44,20 @@ def make_renderer(static: T.SceneStatic, cfg: RenderConfig, resx: int,
     z (resy, resx))`` (plus a stats dict with ``with_stats``) on ``device``.
 
     The image is linear float32 radiance.  Pixels run in tiles of
-    ``cfg.tile_size`` (auto: 65536, the JAX package's dense-scene tile),
-    the frame padded to whole tiles; tile ``i`` draws its samples under the
-    path ``(i, round, emitter, chunk)``.  Stats sum over tiles; the
+    ``cfg.tile_size`` (auto, as in the JAX package: 2048 for scenes that
+    take the cluster sweep, 65536 otherwise), the frame padded to whole
+    tiles; tile ``i`` draws its samples under the path ``(i, round,
+    emitter, chunk)``.  The intersector, with its cluster packs, is built
+    once per frame and serves every tile.  Stats sum over tiles; the
     ``*_spill_max`` guards take the max."""
     device = torch.device(device)
     n_pixels = resx * resy
-    tile = min(cfg.tile_size or DENSE_TILE, n_pixels)
+    tile = cfg.tile_size
+    if tile is None:
+        cluster_scene = (static.n_triangles >= AUTO_THRESHOLD
+                         and cfg.accel != "none")
+        tile = CLUSTER_TILE if cluster_scene else DENSE_TILE
+    tile = min(tile, n_pixels)
     n_tiles = -(-n_pixels // tile)
     pad = n_tiles * tile - n_pixels
 
@@ -59,6 +69,7 @@ def make_renderer(static: T.SceneStatic, cfg: RenderConfig, resx: int,
                 "gradients through the main path)")
         with torch.no_grad():
             ds = G.device_scene(params, static)
+            ix = make_intersector(ds, static, cfg)
             o, d = primary_rays(params.camera, resx, resy)
             if pad:
                 o = torch.cat([o, o.new_zeros((pad, 3))])
@@ -67,7 +78,7 @@ def make_renderer(static: T.SceneStatic, cfg: RenderConfig, resx: int,
                                      rng.SampleKey(sampler, (i,)),
                                      o[i * tile:(i + 1) * tile],
                                      d[i * tile:(i + 1) * tile],
-                                     with_stats=with_stats)
+                                     with_stats=with_stats, ix=ix)
                     for i in range(n_tiles)]
         color = torch.cat([out[0] for out in outs])[:n_pixels]
         z = torch.cat([out[1] for out in outs])[:n_pixels]

@@ -43,7 +43,8 @@ class RenderConfig:
     remat: bool = True
     remat_names: tuple = ("occlusion",)
 
-    # acceleration-structure knobs (mesh scenes; not ported yet)
+    # acceleration structure (accel/): "auto" | "none" | "cluster"; auto
+    # takes the cluster sweep from accel.intersect.AUTO_THRESHOLD triangles
     accel: str = "auto"
     bvh_cluster: int = 16
     bvh_visits: int | None = None
@@ -63,9 +64,71 @@ class RenderConfig:
     union_compact: str = "auto"
     closest_compact: str = "off"
     sweep_dead_skip: str = "auto"
+    # The JAX package's opt-in for its Pallas visit-order kernel.  Accepted
+    # with every value and ignored: on CUDA the visit-order kernel
+    # (accel/pallas_visit.py) IS the visit order (both give the same lists).
     pallas_visit: str = "off"
     bvh_shadow_cluster: int | None = None
+
+    # The scene-aware auto policies, as the JAX package resolves them
+    # (its config.py notes the measurements behind each default).
+
+    def resolved_super_group(self, any_transparent: bool,
+                             n_clusters: int) -> int:
+        if self.bvh_super_group is not None:
+            return self.bvh_super_group
+        return 0
+
+    def resolved_shadow_mode(self, any_transparent: bool) -> str:
+        if self.shadow_mode != "auto":
+            return self.shadow_mode
+        return "union" if any_transparent else "shared"
+
+    def resolved_shadow_cluster(self, any_transparent: bool) -> int:
+        if self.bvh_shadow_cluster is not None:
+            return self.bvh_shadow_cluster
+        if self.resolved_shadow_mode(any_transparent) == "union":
+            return 64
+        return self.bvh_cluster
+
+    def resolved_union_visits(self, any_transparent: bool) -> int:
+        if self.bvh_shadow_visits is not None:
+            return self.bvh_shadow_visits
+        return 192
+
+    def resolved_visits(self, any_transparent: bool) -> int:
+        """Closest-hit visit budget: 16 for opaque scenes, 64 for
+        transparent ones (rays inside a mesh see many zero-entry
+        clusters)."""
+        if self.bvh_visits is not None:
+            return self.bvh_visits
+        return 64 if any_transparent else 16
+
+    def resolved_shadow_visits(self, any_transparent: bool) -> int:
+        """Shadow visit budget: the closest-hit budget for opaque scenes,
+        at least 64 for transparent ones (the kt product needs every
+        blocker along the segment)."""
+        if self.bvh_shadow_visits is not None:
+            return self.bvh_shadow_visits
+        return max(self.resolved_visits(any_transparent), 64) \
+            if any_transparent else self.resolved_visits(any_transparent)
+
+    def resolved_shadow_shortlist(self, any_transparent: bool) -> int:
+        """Per-pixel triangle shortlist of the shared shadow sweep: 32 for
+        opaque scenes, 0 (off) for transparent ones (nearest-to-origin
+        scoring would drop kt factors)."""
+        if self.bvh_shadow_shortlist is not None:
+            return self.bvh_shadow_shortlist
+        return 0 if any_transparent else 32
 
     @property
     def min_light_intensity_sqr(self) -> float:
         return self.min_light_intensity * self.min_light_intensity
+
+    def resolved_rounds(self, any_transparent: bool) -> int:
+        """Upper bound on the rounds of the reflect/refract tree."""
+        if self.rounds is not None:
+            return self.rounds
+        if any_transparent:
+            return 4 * self.max_bounces + 1
+        return self.max_bounces + 1

@@ -8,6 +8,10 @@ The JAX package's ``lax.scan`` over bounce rounds is a Python loop here,
 and its dead-round ``lax.cond`` is ``if not live.any(): break`` — one host
 sync per round (a CUDA graph of the round body would remove it).
 
+The intersector (and the cluster packs of a mesh scene) depends only on
+the scene parameters, so ``make_renderer`` builds it once per frame and
+hands it to every tile.
+
 Not ported yet, and refused with ``NotImplementedError``: the stack
 integrator (transparent materials, refraction) and path-traced GI.
 """
@@ -32,8 +36,9 @@ def _trace(ix, o: V3, d: V3):
     """Intersection step of the JAX package's ``_trace(..., inside=None)``:
     chain-mode rays never enter objects (the inside-object re-test belongs
     to the stack integrator).  Returns (t, gid, mat, normal V3,
-    visit_spill (P,))."""
-    return ix.closest(o, d)
+    visit_spill (P,)): the closest-hit sweep's per-lane truncation count,
+    0 on the exhaustive dense route."""
+    return ix.closest(o, d, with_spill=True)
 
 
 def _round_shade(ix, static, cfg, k_shade, ro: V3, rd: V3, rkr: V3,
@@ -69,7 +74,7 @@ def _round_shade(ix, static, cfg, k_shade, ro: V3, rd: V3, rkr: V3,
     return dict(t=t, gid=gid, hit=hit, active_hit=active_hit,
                 contrib=contrib, z_val=z_val, hit_pt=aux["hit_pt"],
                 push_refl=push_refl, refl_d=refl_d, refl_kr=refl_kr,
-                visit_spill=visit_spill)
+                visit_spill=visit_spill, shadow_spill=aux["shadow_spill"])
 
 
 def _stat_weights(static: T.SceneStatic, cfg: RenderConfig):
@@ -83,10 +88,9 @@ def _stat_weights(static: T.SceneStatic, cfg: RenderConfig):
     return shadow_rays_per_hit, gi_per_primary, gi_per_secondary
 
 
-def _render_chain(ds: G.DeviceScene, static: T.SceneStatic,
-                  cfg: RenderConfig, key, o: V3, d: V3, *, with_stats: bool):
+def _render_chain(ix, static: T.SceneStatic, cfg: RenderConfig, key, o: V3,
+                  d: V3, *, with_stats: bool):
     P, dev = o.x.shape, o.x.device
-    ix = make_intersector(ds, static, cfg)
     rounds = min(cfg.rounds or (cfg.max_bounces + 1), cfg.max_bounces + 1)
     sh_w, gi_p, gi_s = _stat_weights(static, cfg)
 
@@ -115,8 +119,9 @@ def _render_chain(ds: G.DeviceScene, static: T.SceneStatic,
         stats[1] += n_hit * sh_w
         stats[2] += n_hit * (gi_p if is_primary else gi_s)
         stats[3] += live2.sum(dtype=torch.float64)
-        # stats[4] (stack drops) and stats[5] (shadow spill) stay 0: the
-        # chain has no stack and the dense shadow sweep is exhaustive
+        # stats[4] (stack drops) stays 0: the chain has no stack
+        stats[5] = torch.maximum(stats[5],
+                                 r["shadow_spill"].to(torch.float64))
         stats[6] = torch.maximum(stats[6], r["visit_spill"].to(torch.float64))
         ro, rd, rkr, live = r["hit_pt"], r["refl_d"], r["refl_kr"], live2
     return _finish(color, z, stats, with_stats)
@@ -130,11 +135,13 @@ def _finish(color: V3, z, stats, with_stats):
 
 
 def render_wavefront(ds: G.DeviceScene, static: T.SceneStatic,
-                     cfg: RenderConfig, key, o, d, *, with_stats=False):
+                     cfg: RenderConfig, key, o, d, *, with_stats=False,
+                     ix=None):
     """Render one tile of primary rays.
 
     o, d: (P, 3) primary origins/directions; ``key`` a ``rng.SampleKey``
-    naming the tile.  Returns (color (P, 3), zbuffer (P,)) and, with
+    naming the tile; ``ix`` the frame's intersector (built from ``ds``
+    when None).  Returns (color (P, 3), zbuffer (P,)) and, with
     ``with_stats``, a dict of ray counts (0-d float64 tensors) under the
     JAX package's keys."""
     if any(static.is_transparent):
@@ -144,5 +151,7 @@ def render_wavefront(ds: G.DeviceScene, static: T.SceneStatic,
     if cfg.gi_model != GI_AMBIENT:
         raise NotImplementedError(
             f"gi_model={cfg.gi_model!r} is not ported yet (ROADMAP: path GI)")
-    return _render_chain(ds, static, cfg, key, v3m.from_aos(o),
+    if ix is None:
+        ix = make_intersector(ds, static, cfg)
+    return _render_chain(ix, static, cfg, key, v3m.from_aos(o),
                          v3m.from_aos(d), with_stats=with_stats)

@@ -5,13 +5,17 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels of c_raytracer_tpu_torch/csrc/ (nvcc, sm_90a,
-into c_raytracer_tpu_torch/_build/), holds each kernel against its plain
-PyTorch version on the card, renders a small frame on the card against the
-same frame on the CPU, then drives the port's main path: the opaque
-stand-in scene (scenes/spheres_opaque.json) at 1024x1024 under the default
-RenderConfig, and times it.  Each phase prints one line; any failed check
-raises, so the script exits non-zero and prints no result.  The last two
-lines are the kernels' JSON summary and the run's result line.
+one library per source, all compiled at once, into
+c_raytracer_tpu_torch/_build/), holds each kernel against its plain PyTorch
+version on the card, renders small frames on the card against the same
+frames on the CPU, and drives the port's two main paths under the default
+RenderConfig, timing each: the dense stand-in (scenes/spheres_opaque.json)
+at 1024x1024 (phases 3-6: Philox, fused shadow), and the mesh stand-in
+(scenes/meshes_opaque.json, 136,896 triangles in Morton clusters) at
+512x512 (phases 7-9: the cluster visit order).  Each phase prints one line;
+any failed check raises, so the script exits non-zero and prints no
+result.  The last two lines are the kernels' JSON summary and the run's
+result line.
 
 It imports torch, numpy and the port only (never JAX).
 """
@@ -27,12 +31,19 @@ import time
 import torch
 
 from c_raytracer_tpu_torch import _native
+from c_raytracer_tpu_torch.accel import make_intersector, reorder_scene
+from c_raytracer_tpu_torch.accel import pallas_visit
 from c_raytracer_tpu_torch.core import rng
+from c_raytracer_tpu_torch.geometry import device_scene
 from c_raytracer_tpu_torch.render import RenderConfig, fused_shadow
 from c_raytracer_tpu_torch.render.api import make_renderer
-from c_raytracer_tpu_torch.scene import load_scene
+from c_raytracer_tpu_torch.render.camera import primary_rays
+from c_raytracer_tpu_torch.scene import load_scene, params_to_torch
 
 SCENE = "scenes/spheres_opaque.json"
+MESH_SCENE = "scenes/meshes_opaque.json"
+MESH_RES = 512
+MESH_TILE = 2048      # the auto tile of a cluster scene
 KAT = {  # Random123 philox4x32_10, counter 0, key 0
     "ctr0_key0": (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)}
 COMBOS = [(phong, att) for phong in (True, False)
@@ -121,6 +132,95 @@ def capture_first_round(static, params, device):
     return calls[0]
 
 
+def compare_visit(o, d, lo, hi, V, count_max_dist=None):
+    """Kernel 3 against its plain version on the card: bit-equal ok mask,
+    spill, and cids and entry on ok slots.  Returns (ok slots, max spill,
+    max |entry difference| on ok slots)."""
+    kc, ke, ks = pallas_visit.visit_order(o, d, lo, hi, V, count_max_dist)
+    pc, pe, ps = pallas_visit.visit_order_reference(o, d, lo, hi, V,
+                                                    count_max_dist)
+    torch.cuda.synchronize()
+    what = f"visit_order R={o.shape[0]} K={lo.shape[0]} V={V}" + (
+        " count_max_dist" if count_max_dist is not None else "")
+    ok = pe < pallas_visit.FLT_MAX
+    check(torch.equal(ke < pallas_visit.FLT_MAX, ok), f"{what}: ok mask")
+    check(torch.equal(ks, ps), f"{what}: spill")
+    check(torch.equal(kc[ok], pc[ok]), f"{what}: cids")
+    err = (ke[ok] - pe[ok]).abs().max().item() if ok.any() else 0.0
+    check(torch.equal(ke[ok], pe[ok]), f"{what}: entry")
+    return int(ok.sum()), int(ps.max()), err
+
+
+def record_visit_calls(static, params, cfg, resx, resy, device, seed):
+    """The visit-order operands of every call in one frame, in call order
+    (the chain integrator calls it once per live round of each tile)."""
+    calls = []
+    real = pallas_visit.visit_order
+
+    def recording(o, d, lo, hi, V, count_max_dist=None):
+        calls.append((o.clone(), d.clone(), lo, hi, V))
+        return real(o, d, lo, hi, V, count_max_dist)
+
+    recording.launches = 0  # the launch counter lives on the module's name
+    pallas_visit.visit_order = recording
+    try:
+        make_renderer(static, cfg, resx, resy, device=device)(
+            params, rng.PhiloxSampler(seed, device))
+    finally:
+        pallas_visit.visit_order = real
+    return calls
+
+
+def frames_agree(a, b, what: str) -> tuple[float, float]:
+    """Card frame ``a`` against CPU frame ``b`` (image, z, stats): equal ray
+    counts and spill maxima, >= 0.999 of pixels within 1e-4·max in image
+    and z.  Returns the two fractions."""
+    (gi, gz, gs), (ci, cz, cs) = a, b
+    for k in ("main_rays", "shadow_rays", "shadow_spill_max",
+              "visit_spill_max"):
+        check(gs[k] == cs[k], f"{what} {k}: card {gs[k]} cpu {cs[k]}")
+    pix = ((gi - ci).abs().amax(-1) <= 1e-4 * ci.max()).float().mean().item()
+    zok = ((gz - cz).abs() <= 1e-4 * cz.max()).float().mean().item()
+    check(pix >= 0.999, f"{what} image: {pix:.5f} of pixels within 1e-4·max")
+    check(zok >= 0.999, f"{what} z: {zok:.5f} of pixels within 1e-4·max")
+    return pix, zok
+
+
+def render_on(device, static, params, cfg, res, seed):
+    fn = make_renderer(static, cfg, res, res, device=device, with_stats=True)
+    img, z, st = fn(params, rng.PhiloxSampler(seed, device))
+    return img.cpu(), z.cpu(), {k: float(v) for k, v in st.items()}
+
+
+def time_frames(render, params, sampler, dev, launch_fns, n=3):
+    """Warm up, reset the launch counters, render ``n`` timed frames.
+    Returns (image, z, stats, seconds, launches, peak bytes)."""
+    render(params, sampler)                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in launch_fns.values():
+        fn.launches = 0
+    secs = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, z, st = render(params, sampler)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in launch_fns.items()}
+    st = {k: float(v) for k, v in st.items()}
+    return img, z, st, secs, launches, torch.cuda.max_memory_allocated(dev)
+
+
+def check_frame(img, z, res, what: str) -> None:
+    check(tuple(img.shape) == (res, res, 3) and tuple(z.shape) == (res, res),
+          f"{what} shapes")
+    check(bool(torch.isfinite(img).all()) and img.max().item() > 0,
+          f"{what} image finite and lit")
+    check(bool((z > 0).any()) and bool((z == 0).any()),
+          f"{what} z has hits and misses")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -141,7 +241,7 @@ def main() -> int:
     # -- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
     _native.lib()
-    phase(2, f"built {_native.library_path()} in "
+    phase(2, f"built {sorted(_native.build().values())} in "
              f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: Philox kernel against plain, bit-exact ------------------
@@ -213,30 +313,12 @@ def main() -> int:
     # -- phase 6: the main path at 1024x1024 ------------------------------
     render = make_renderer(sc.static, cfg, 1024, 1024, device=dev,
                            with_stats=True)
-    sampler = rng.PhiloxSampler(args.seed, dev)
-    render(sc.params, sampler)                       # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    rng.philox_uniform.launches = 0
-    fused_shadow.fused_chunk.launches = 0
-    secs = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img, z, st = render(sc.params, sampler)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-    launches = {"philox_uniform": rng.philox_uniform.launches,
-                "fused_shadow_chunk": fused_shadow.fused_chunk.launches}
-    peak = torch.cuda.max_memory_allocated(dev)
+    img, z, st, secs, launches, peak = time_frames(
+        render, sc.params, rng.PhiloxSampler(args.seed, dev), dev,
+        {"philox_uniform": rng.philox_uniform,
+         "fused_shadow_chunk": fused_shadow.fused_chunk})
     check(all(n > 0 for n in launches.values()), f"launches {launches}")
-    check(tuple(img.shape) == (1024, 1024, 3) and tuple(z.shape) == (
-        1024, 1024), "main path shapes")
-    check(bool(torch.isfinite(img).all()) and img.max().item() > 0,
-          "main path image finite and lit")
-    check(bool((z > 0).any()) and bool((z == 0).any()),
-          "main path z has hits and misses")
-    st = {k: float(v) for k, v in st.items()}
+    check_frame(img, z, 1024, "dense main path")
     rays = st["main_rays"] + st["shadow_rays"] + st["gi_rays"]
     frame_s = sum(secs) / len(secs)
     phase(6, f"1024x1024 stand-in, RenderConfig(): frame s "
@@ -257,17 +339,89 @@ def main() -> int:
     phase(6, f"chunk lc=40 P=65536 ms: philox kernel {ph_ms:.4f} plain "
              f"{ph_plain:.4f}; fused kernel {fu_ms:.4f} plain {fu_plain:.4f}")
 
+    # -- phase 7: visit-order kernel against plain, bit-equal -------------
+    msc = reorder_scene(load_scene(MESH_SCENE))
+    mparams = params_to_torch(msc.params, dev)
+    ix = make_intersector(device_scene(mparams, msc.static), msc.static, cfg)
+    lo, hi = ix.clusters.lo, ix.clusters.hi
+    K = lo.shape[0]
+    V = cfg.resolved_visits(False)
+    check(K == 8556 and V == 16, f"stand-in clusters K={K} V={V}")
+    o_all, d_all = primary_rays(mparams.camera, MESH_RES, MESH_RES)
+    mid = (MESH_RES * MESH_RES // MESH_TILE) // 2     # a tile through the
+    o1 = o_all[mid * MESH_TILE:(mid + 1) * MESH_TILE].contiguous()  # meshes
+    d1 = d_all[mid * MESH_TILE:(mid + 1) * MESH_TILE].contiguous()
+    n_ok, sp1, vo_err = compare_visit(o1, d1, lo, hi, V)
+    calls = record_visit_calls(msc.static, msc.params, cfg, 64, 32, dev,
+                               args.seed)              # one 2048-px tile
+    check(len(calls) >= 2 and calls[1][0].shape[0] == MESH_TILE,
+          f"a reflection round: {len(calls)} visit calls")
+    n_ok2, sp2, err2 = compare_visit(*calls[1])
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    ro = (torch.rand((4096, 3), generator=gen, device=dev) * 8 - 4)
+    rd = torch.randn((4096, 3), generator=gen, device=dev)
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    cmd = torch.rand((4096,), generator=gen, device=dev) * 4
+    n_ok3, sp3, err3 = compare_visit(ro, rd, lo, hi, 64, cmd)
+    err4 = compare_visit(ro[:300].contiguous(), rd[:300].contiguous(), lo,
+                         hi, V)[2]
+    vo_err = max(vo_err, err2, err3, err4)
+    phase(7, f"visit-order kernel bit-equal to plain at K={K}: first round "
+             f"R={MESH_TILE} V={V} ({n_ok} ok slots, spill max {sp1}); "
+             f"reflection round ({n_ok2}, {sp2}); random rays V=64 with "
+             f"count_max_dist ({n_ok3}, {sp3}); R=300")
+
+    # -- phase 8: 64x64 mesh frame on the card against the CPU ------------
+    mframes = [render_on(d, msc.static, msc.params, cfg, 64, args.seed)
+               for d in (dev, torch.device("cpu"))]
+    pix, zok = frames_agree(*mframes, "64x64 mesh")
+    gs = mframes[0][2]
+    phase(8, f"64x64 mesh card vs CPU: rays {gs['main_rays']:.0f}/"
+             f"{gs['shadow_rays']:.0f} equal, spill max shadow "
+             f"{gs['shadow_spill_max']:.0f} visit {gs['visit_spill_max']:.0f}"
+             f" equal; image {pix:.5f}, z {zok:.5f} of pixels within "
+             f"1e-4·max")
+
+    # -- phase 9: the mesh path at 512x512 --------------------------------
+    mrender = make_renderer(msc.static, cfg, MESH_RES, MESH_RES, device=dev,
+                            with_stats=True)
+    img, z, mst, msecs, mlaunches, mpeak = time_frames(
+        mrender, msc.params, rng.PhiloxSampler(args.seed, dev), dev,
+        {"philox_uniform": rng.philox_uniform,
+         "visit_order": pallas_visit.visit_order})
+    check(all(n > 0 for n in mlaunches.values()), f"launches {mlaunches}")
+    check_frame(img, z, MESH_RES, "mesh main path")
+    mrays = mst["main_rays"] + mst["shadow_rays"] + mst["gi_rays"]
+    mframe_s = sum(msecs) / len(msecs)
+    phase(9, f"{MESH_RES}x{MESH_RES} mesh stand-in, RenderConfig(): frame s "
+             f"{[round(s, 6) for s in msecs]} mean {mframe_s:.6f}; "
+             f"{mrays / MESH_RES**2:.2f} rays/px; {mrays / mframe_s:.6e} "
+             f"rays/s; peak {mpeak / 2**20:.1f} MiB; launches {mlaunches}; "
+             f"spill max shadow {mst['shadow_spill_max']:.0f} visit "
+             f"{mst['visit_spill_max']:.0f}")
+    vo_ms, vo_plain = paired_ms(
+        lambda: pallas_visit.visit_order_reference(o1, d1, lo, hi, V),
+        lambda: pallas_visit.visit_order(o1, d1, lo, hi, V))
+    phase(9, f"visit order R={MESH_TILE} K={K} V={V} ms: kernel "
+             f"{vo_ms:.4f} plain {vo_plain:.4f}")
+
     print(json.dumps({"kernels": [
         {"name": "philox_uniform", "route": "cuda",
          "source": "c_raytracer_tpu_torch/csrc/philox.cu",
          "replaces": "c_raytracer_tpu/core/rng.py:103",
-         "launches": launches["philox_uniform"], "max_abs_err": 0.0,
+         "launches": launches["philox_uniform"]
+         + mlaunches["philox_uniform"], "max_abs_err": 0.0,
          "ms": ph_ms, "plain_ms": ph_plain},
         {"name": "fused_shadow_chunk", "route": "cuda",
          "source": "c_raytracer_tpu_torch/csrc/fused_shadow.cu",
          "replaces": "c_raytracer_tpu/render/fused_shadow.py:195",
          "launches": launches["fused_shadow_chunk"],
          "max_abs_err": fused_err, "ms": fu_ms, "plain_ms": fu_plain},
+        {"name": "visit_order", "route": "cuda",
+         "source": "c_raytracer_tpu_torch/csrc/visit_order.cu",
+         "replaces": "c_raytracer_tpu/accel/pallas_visit.py:98",
+         "launches": mlaunches["visit_order"], "max_abs_err": vo_err,
+         "ms": vo_ms, "plain_ms": vo_plain},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

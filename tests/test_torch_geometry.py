@@ -1,6 +1,7 @@
 """Primary rays and the dense closest-hit fold of the port against the JAX
 package's, on the same NumPy inputs."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -71,11 +72,22 @@ def test_closest_hit_matches_jax(seed):
 
 
 def test_device_scene_refuses_triangles():
+    """Triangles were refused until the mesh slice; now device_scene builds
+    their tables (edges, normals, epsilons) as the JAX package does."""
     sc = jax_make_scene(
-        tri_vertices=[[[0, 0, 0], [1, 0, 0], [0, 1, 0]]], tri_material=[0],
+        tri_vertices=[[[0, 0, 0], [1, 0, 0], [0, 1, 0]],
+                      [[0, 0, 1], [2, 0, 1], [0, 3, 2]]], tri_material=[0, 0],
         sphere_center=[[0, 3, 0]], sphere_radius=[1.0], sphere_material=[0],
+        plane_point=[[0, -1, 0]], plane_normal=[[0, 1, 0]],
+        plane_material=[0],
         materials=[dict(ke=[1, 1, 1], tex_type=0)],
         camera=dict(position=[0, 0, -5], vector_x=[1, 0, 0],
                     vector_y=[0, 1, 0], fov=60, focal_length=1))
-    with pytest.raises(NotImplementedError, match="triangles"):
-        TG.device_scene(params_to_torch(sc.params, "cpu"), sc.static)
+    with jax.disable_jit():          # jitted, jnp.cross contracts into FMAs
+        jds = JG.device_scene(sc.params, sc.static)
+    tds = TG.device_scene(params_to_torch(sc.params, "cpu"), sc.static)
+    for name in ("tri_v0", "tri_e1", "tri_e2", "tri_n", "tri_eps", "sph_eps",
+                 "pln_eps", "prim_eps", "mat_idx"):
+        np.testing.assert_array_equal(getattr(tds, name).numpy(),
+                                      np.asarray(getattr(jds, name)),
+                                      err_msg=name)

@@ -136,6 +136,10 @@ def test_outside_the_slice_raises(what):
                     sphere_radius=[1.0, 0.5], sphere_material=[0, 1],
                     sphere_lights=[0, 8], materials=mats, camera=cam, **tri)
     cfg = RenderConfig(gi_model="path" if what == "path_gi" else "ambient")
+    if what == "triangle":
+        # triangles render now; the union shadow mode of a cluster scene
+        # is still outside the slice
+        cfg = RenderConfig(accel="cluster", shadow_mode="union")
     params = sc.params
     if what == "grad":
         params = params_to_torch(sc.params, "cpu")

@@ -97,12 +97,19 @@ def test_loader_error_wording(tmp_path):
         load_scene(str(bad))
 
 
-@pytest.mark.parametrize("source", ["jax", "port"])
+@pytest.mark.parametrize("source", ["jax", "port", "jax_mesh_reordered"])
 def test_params_to_torch(source):
-    path = os.path.join(SCENES, "example.json")
-    sc = jax_load_scene(path) if source == "jax" else load_scene(path)
+    if source == "jax_mesh_reordered":
+        # the JAX package's Morton-ordered params of the mesh stand-in
+        from c_raytracer_tpu.accel import reorder_scene as jax_reorder
+        path = os.path.join(SCENES, "meshes_opaque.json")
+        sc = jax_reorder(jax_load_scene(path))
+        ref = sc
+    else:
+        path = os.path.join(SCENES, "example.json")
+        sc = jax_load_scene(path) if source == "jax" else load_scene(path)
+        ref = jax_load_scene(path)
     tp = params_to_torch(sc.params, "cpu")
-    ref = jax_load_scene(path)
     _assert_same(dataclasses.replace(ref, params=tp), ref)
     for v in _leaves(tp).values():
         assert isinstance(v, torch.Tensor) and v.dtype == torch.float32

@@ -1,12 +1,15 @@
 """Where one frame of the PyTorch port's main path spends its time on a GPU.
 
-    python3 tools/profiling/torch_frame_profile.py [--res 1024] [--seed 0]
+    python3 tools/profiling/torch_frame_profile.py [--scene scenes/X.json]
+        [--res 1024] [--seed 0]
 
-Renders scenes/spheres_opaque.json under RenderConfig() once to warm up,
-then once under torch.profiler, and prints: the frame's wall seconds, the
+Renders a scene (default scenes/spheres_opaque.json; mesh scenes are put in
+Morton order first) under RenderConfig() once to warm up, then once under
+torch.profiler, and prints: the frame's wall seconds, the
 device busy seconds (the sum of CUDA kernel times; one stream, so kernels
 do not overlap), the idle share, the kernel launch count, the host time in
-stream syncs, and the kernels with the most device time.  Needs a CUDA
+stream syncs, the kernels with the most device time and the host ops with
+the most self CPU time.  Needs a CUDA
 device; imports the port only (never JAX).
 """
 
@@ -26,6 +29,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
+from c_raytracer_tpu_torch.accel import reorder_scene  # noqa: E402
 from c_raytracer_tpu_torch.core import rng  # noqa: E402
 from c_raytracer_tpu_torch.render import RenderConfig  # noqa: E402
 from c_raytracer_tpu_torch.render.api import make_renderer  # noqa: E402
@@ -34,6 +38,8 @@ from c_raytracer_tpu_torch.scene import load_scene  # noqa: E402
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scene", default=os.path.join(ROOT, "scenes",
+                                                    "spheres_opaque.json"))
     ap.add_argument("--res", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -43,7 +49,7 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
     dev = torch.device("cuda", 0)
-    sc = load_scene(os.path.join(ROOT, "scenes", "spheres_opaque.json"))
+    sc = reorder_scene(load_scene(args.scene))
     render = make_renderer(sc.static, RenderConfig(), args.res, args.res,
                            device=dev, with_stats=True)
     sampler = rng.PhiloxSampler(args.seed, dev)
@@ -70,8 +76,13 @@ def main() -> None:
     rays = sum(float(stats[k]) for k in ("main_rays", "shadow_rays",
                                          "gi_rays"))
     print(f"rays {rays:.0f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
         print(f"{e.self_device_time_total / 1e3:9.3f} ms  n={e.count:6d}  "
+              f"{e.key[:100]}")
+    print("host ops by self CPU time:")
+    ops = [e for e in events if e.device_type == DeviceType.CPU]
+    for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:12]:
+        print(f"{e.self_cpu_time_total / 1e3:9.3f} ms  n={e.count:6d}  "
               f"{e.key[:100]}")
 
 
