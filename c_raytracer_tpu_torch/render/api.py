@@ -68,17 +68,16 @@ def make_renderer(static: T.SceneStatic, cfg: RenderConfig, resx: int,
                 "gradients through the frame are not ported yet (ROADMAP: "
                 "gradients through the main path)")
         with torch.no_grad():
-            ds = G.device_scene(params, static)
-            ix = make_intersector(ds, static, cfg)
+            ix = make_intersector(G.device_scene(params, static), static, cfg)
             o, d = primary_rays(params.camera, resx, resy)
             if pad:
                 o = torch.cat([o, o.new_zeros((pad, 3))])
                 d = torch.cat([d, d.new_zeros((pad, 3))])
-            outs = [render_wavefront(ds, static, cfg,
+            outs = [render_wavefront(ix, static, cfg,
                                      rng.SampleKey(sampler, (i,)),
                                      o[i * tile:(i + 1) * tile],
                                      d[i * tile:(i + 1) * tile],
-                                     with_stats=with_stats, ix=ix)
+                                     with_stats=with_stats)
                     for i in range(n_tiles)]
         color = torch.cat([out[0] for out in outs])[:n_pixels]
         z = torch.cat([out[1] for out in outs])[:n_pixels]

@@ -20,10 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from c_raytracer_tpu_torch.accel.intersect import make_intersector
 from c_raytracer_tpu_torch.core import v3 as v3m
 from c_raytracer_tpu_torch.core.v3 import V3
-from c_raytracer_tpu_torch.geometry import primitives as G
 from c_raytracer_tpu_torch.render import shading
 from c_raytracer_tpu_torch.render.config import GI_AMBIENT, GI_PATH, RenderConfig
 from c_raytracer_tpu_torch.scene import types as T
@@ -134,14 +132,13 @@ def _finish(color: V3, z, stats, with_stats):
     return color, z
 
 
-def render_wavefront(ds: G.DeviceScene, static: T.SceneStatic,
-                     cfg: RenderConfig, key, o, d, *, with_stats=False,
-                     ix=None):
+def render_wavefront(ix, static: T.SceneStatic, cfg: RenderConfig, key, o,
+                     d, *, with_stats=False):
     """Render one tile of primary rays.
 
+    ``ix`` is the frame's intersector (``accel.intersect.make_intersector``);
     o, d: (P, 3) primary origins/directions; ``key`` a ``rng.SampleKey``
-    naming the tile; ``ix`` the frame's intersector (built from ``ds``
-    when None).  Returns (color (P, 3), zbuffer (P,)) and, with
+    naming the tile.  Returns (color (P, 3), zbuffer (P,)) and, with
     ``with_stats``, a dict of ray counts (0-d float64 tensors) under the
     JAX package's keys."""
     if any(static.is_transparent):
@@ -151,7 +148,5 @@ def render_wavefront(ds: G.DeviceScene, static: T.SceneStatic,
     if cfg.gi_model != GI_AMBIENT:
         raise NotImplementedError(
             f"gi_model={cfg.gi_model!r} is not ported yet (ROADMAP: path GI)")
-    if ix is None:
-        ix = make_intersector(ds, static, cfg)
     return _render_chain(ix, static, cfg, key, v3m.from_aos(o),
                          v3m.from_aos(d), with_stats=with_stats)

@@ -110,8 +110,8 @@ def test_mesh_render_matches_jax(case):
     # per_ray with 4 visits: both truncation guards fire, as in JAX
     kw = {"dense": dict(accel="none"),
           "per_ray": dict(shadow_mode="per_ray", bvh_visits=4)}.get(case, {})
-    # 20x16 = 320 px: three tiles, the last one padded
-    st = _compare(sc, kw, (20, 16) if case == "cluster_auto" else (16, 16))
+    # 16x12 = 192 px: two tiles, the last one padded
+    st = _compare(sc, kw, (16, 12) if case == "cluster_auto" else (16, 16))
     assert float(st["children_pushed"]) > 0           # chains past round 0
     assert float(st["shadow_rays"]) > 0
     if case == "per_ray":
