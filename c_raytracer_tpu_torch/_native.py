@@ -47,13 +47,12 @@ _SIGNATURES = {
                                          ctypes.c_uint32, ctypes.c_uint32,
                                          _PTR)),
     # (u, px, scal_f, out, P, lc, n_valid, ns, npl, egid, phong,
-    #  atten_kind, n_scal, stream)
+    #  atten_kind, n_scal, slices, stream)
     "crt_fused_shadow_chunk": ("fused_shadow.cu",
-                               (_PTR,) * 4 + (_INT,) * 9 + (_PTR,)),
+                               (_PTR,) * 4 + (_INT,) * 10 + (_PTR,)),
     # (o, d, lo, hi, count_max_dist or NULL, cids, entry, spill, R, K, V,
-    #  stream)
-    "crt_visit_order": ("visit_order.cu", (_PTR,) * 8 + (_INT,) * 3 + (_PTR,)),
-    "crt_visit_order_max_visits": ("visit_order.cu", ()),
+    #  cluster, warps, slice, tile, stages, smem bytes, stream)
+    "crt_visit_order": ("visit_order.cu", (_PTR,) * 8 + (_INT,) * 9 + (_PTR,)),
 }
 
 

@@ -12,10 +12,20 @@ frames on the CPU, and drives the port's two main paths under the default
 RenderConfig, timing each: the dense stand-in (scenes/spheres_opaque.json)
 at 1024x1024 (phases 3-6: Philox, fused shadow), and the mesh stand-in
 (scenes/meshes_opaque.json, 136,896 triangles in Morton clusters) at
-512x512 (phases 7-9: the cluster visit order).  Each phase prints one line;
-any failed check raises, so the script exits non-zero and prints no
-result.  The last two lines are the kernels' JSON summary and the run's
-result line.
+512x512 (phases 7-9: the cluster visit order).  Phase 10 times every
+kernel on the device at the main paths' shapes and sets each beside its
+bound.  Each phase prints one line or a few; any failed check raises, so
+the script exits non-zero and prints no result.  The last two lines are the
+kernels' JSON summary and the run's result line.
+
+Kernel times: ``device ms`` is the CUDA kernel time that torch.profiler
+records over 50 launches, divided by the launches it recorded (phase 10
+runs it twice for each shape); ``issue ms`` is the older CUDA-
+event time around 20 launches issued one by one from Python, which for a
+short kernel measures the host's issue rate.  ``bound ms`` is the least
+time an H100 SXM could take for the same work: the larger of the bytes
+moved (each input read once, each output written once) over 3.35 TB/s and
+the float operations over 67 TFLOP/s.
 
 It imports torch, numpy and the port only (never JAX).
 """
@@ -23,12 +33,15 @@ It imports torch, numpy and the port only (never JAX).
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import subprocess
 import sys
 import time
 
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from c_raytracer_tpu_torch import _native
 from c_raytracer_tpu_torch.accel import make_intersector, reorder_scene
@@ -48,6 +61,17 @@ KAT = {  # Random123 philox4x32_10, counter 0, key 0
     "ctr0_key0": (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)}
 COMBOS = [(phong, att) for phong in (True, False)
           for att in ("none", "lin", "sqr")]
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# float operations per unit of work, counted from the kernels' formulas:
+# the slab test of one box (6 sub, 6 mul, 12 min/max, the clamp and the
+# overlap compare); one live soft-shadow sample (a sinf or cosf counted as
+# 20, a powf as 30, a sqrt or an IEEE division as 4-8), and each occluding
+# sphere and plane it is tested against
+VISIT_OPS_PER_BOX = 25
+FUSED_OPS_PER_SAMPLE = 205
+FUSED_OPS_PER_SPHERE = 30
+FUSED_OPS_PER_PLANE = 25
 
 
 def check(ok: bool, what: str) -> None:
@@ -59,8 +83,9 @@ def phase(n: int, msg: str) -> None:
     print(f"[phase {n}] {msg}", flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() over reps launches, by CUDA events."""
+def issue_ms(fn, reps: int = 20) -> float:
+    """Milliseconds per call of fn() over reps calls issued one by one, by
+    CUDA events: the host's issue rate for a short kernel."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -73,12 +98,61 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def paired_ms(plain, kernel, reps: int = 20) -> tuple[float, float]:
-    """(kernel ms, plain ms), each the mean of two runs in the order plain,
-    kernel, kernel, plain."""
-    p1, k1, k2, p2 = (cuda_ms(f, reps) for f in (plain, kernel, kernel,
-                                                  plain))
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def device_ms(fn, n: int = 50) -> float:
+    """Device milliseconds per call of fn() over n calls under
+    torch.profiler: for a call that launches one kernel, that kernel's
+    recorded time over its recorded count (the profiler may drop the first
+    few records of a run); for a plain version of many kernels, their
+    recorded time over n."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in kernels)
+    count = sum(e.count for e in kernels)
+    check(us > 0 and count >= n * 4 // 5,
+          f"torch.profiler recorded {us} us over "
+          f"{[(e.key[:60], e.count) for e in kernels]}")
+    return us / (count if len(kernels) == 1 else n) / 1e3
+
+
+def paired(first, second, timer) -> tuple[list[float], list[float]]:
+    """Runs of ``timer`` in the order first, second, second, first:
+    ([first's two], [second's two])."""
+    a1, b1, b2, a2 = (timer(f) for f in (first, second, second, first))
+    return [a1, a2], [b1, b2]
+
+
+def mean(xs) -> float:
+    return sum(xs) / len(xs)
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time for the work and what sets it: bytes over the
+    memory rate or float operations over the float32 rate."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def time_line(what: str, dev: list[float], bound: tuple[float, str],
+              **others) -> dict:
+    """Print one timing line; return its numbers."""
+    rec = {"device_ms": mean(dev), "device_runs": dev, "bound_ms": bound[0],
+           "bound_by": bound[1], "share_of_bound": bound[0] / mean(dev),
+           **others}
+    extra = "; ".join(f"{k} {v:.6f}" if isinstance(v, float) else
+                      f"{k} {v}" for k, v in others.items())
+    print(f"[phase 10] {what}: device ms {[round(x, 6) for x in dev]} mean "
+          f"{mean(dev):.6f}; bound {bound[0]:.6f} ms ({bound[1]}), share "
+          f"{bound[0] / mean(dev):.3f}; {extra}", flush=True)
+    return rec
 
 
 def max_sample_contribution(u, px, scal_f, n_valid, kw) -> torch.Tensor:
@@ -112,24 +186,41 @@ def compare_fused(u, px, scal_f, n_valid, kw) -> float:
     return err
 
 
-def capture_first_round(static, params, device):
-    """The fused-chunk operands of the first round of the stand-in scene
-    at 256x256 (one tile of 65536 pixels: the main path's chunk shape)."""
+def record(module, name: str, run, keep) -> list:
+    """Run ``run()`` with ``module.name`` wrapped: each call's arguments
+    go through ``keep(*args, **kwargs)``, and what it returns, unless None,
+    is kept.  Returns the kept records in call order."""
     calls = []
-    real = fused_shadow.fused_chunk
+    real = getattr(module, name)
 
-    def recording(u, px, scal_f, n_valid, **kw):
-        calls.append((u.clone(), px.clone(), scal_f.clone(), n_valid, kw))
-        return real(u, px, scal_f, n_valid, **kw)
+    def recording(*args, **kwargs):
+        rec = keep(*args, **kwargs)
+        if rec is not None:
+            calls.append(rec)
+        return real(*args, **kwargs)
 
-    recording.launches = 0  # the launch counter lives on the module's name
-    fused_shadow.fused_chunk = recording
+    # the wrapper counts its launches on the module's name, now this one
+    recording.launches = 0
+    setattr(module, name, recording)
     try:
-        make_renderer(static, RenderConfig(max_bounces=0), 256, 256,
-                      device=device)(params, rng.PhiloxSampler(11, device))
+        run()
     finally:
-        fused_shadow.fused_chunk = real
-    return calls[0]
+        setattr(module, name, real)
+    return calls
+
+
+def capture_round_chunks(static, params, device):
+    """The operands of the first fused chunk of every round of the stand-in
+    scene at 256x256 under RenderConfig() (one tile of 65536 pixels: the
+    main path's chunk shape), in round order."""
+    def keep(u, px, scal_f, n_valid, **kw):
+        if n_valid < max(static.num_lights):
+            return None          # a round's later chunks
+        return u.clone(), px.clone(), scal_f.clone(), n_valid, kw
+
+    return record(fused_shadow, "fused_chunk", lambda: make_renderer(
+        static, RenderConfig(), 256, 256, device=device)(
+            params, rng.PhiloxSampler(11, device)), keep)
 
 
 def compare_visit(o, d, lo, hi, V, count_max_dist=None):
@@ -151,24 +242,32 @@ def compare_visit(o, d, lo, hi, V, count_max_dist=None):
     return int(ok.sum()), int(ps.max()), err
 
 
-def record_visit_calls(static, params, cfg, resx, resy, device, seed):
+def record_mesh_calls(static, params, cfg, resx, resy, device, seed):
     """The visit-order operands of every call in one frame, in call order
-    (the chain integrator calls it once per live round of each tile)."""
-    calls = []
-    real = pallas_visit.visit_order
+    (the chain integrator calls it once per live round of each tile), and
+    the shapes of the frame's uniform draws."""
+    frame = make_renderer(static, cfg, resx, resy, device=device)
+    shapes = []
 
-    def recording(o, d, lo, hi, V, count_max_dist=None):
-        calls.append((o.clone(), d.clone(), lo, hi, V))
-        return real(o, d, lo, hi, V, count_max_dist)
+    def run():
+        shapes.extend(record(
+            rng, "philox_uniform",
+            lambda: frame(params, rng.PhiloxSampler(seed, device)),
+            lambda key, shape, device: tuple(shape)))
 
-    recording.launches = 0  # the launch counter lives on the module's name
-    pallas_visit.visit_order = recording
-    try:
-        make_renderer(static, cfg, resx, resy, device=device)(
-            params, rng.PhiloxSampler(seed, device))
-    finally:
-        pallas_visit.visit_order = real
-    return calls
+    calls = record(pallas_visit, "visit_order", run,
+                   lambda o, d, lo, hi, V, count_max_dist=None:
+                   (o.clone(), d.clone(), lo, hi, V))
+    return calls, shapes
+
+
+def aimed_rays(lo, hi, R: int, gen):
+    """R rays from random origins in [-4, 4)^3, ray i aimed at the centre
+    of box i % K, so that every box is entered."""
+    c = 0.5 * (lo + hi)[torch.arange(R, device=lo.device) % lo.shape[0]]
+    o = torch.rand((R, 3), generator=gen, device=lo.device) * 8 - 4
+    d = c - o
+    return o, d / d.norm(dim=1, keepdim=True)
 
 
 def frames_agree(a, b, what: str) -> tuple[float, float]:
@@ -261,10 +360,15 @@ def main() -> int:
 
     # -- phase 4: fused kernel against plain ------------------------------
     sc = load_scene(SCENE)
-    u, px, scal_f, n_valid, kw0 = capture_first_round(sc.static, sc.params,
-                                                      dev)
+    chunks = capture_round_chunks(sc.static, sc.params, dev)
+    check(len(chunks) >= 2, f"{len(chunks)} rounds")
+    u, px, scal_f, n_valid, kw0 = chunks[0]
     check(tuple(u.shape) == (2, 40, 65536) and n_valid >= 40,
           f"first-round chunk shape {tuple(u.shape)} n_valid {n_valid}")
+    # the second round's chunk waits on the host, so that the frames' peak
+    # memory holds only what it held before
+    chunk2 = [x.cpu() if torch.is_tensor(x) else x for x in chunks[1]]
+    del chunks
     fused_err = 0.0
     for phong, att in COMBOS:
         kw = dict(kw0, phong=phong, atten_kind=att)
@@ -328,16 +432,19 @@ def main() -> int:
 
     key = rng.path_key(args.seed, (0, 0, 0, 0))
     shape = (2, 40, 65536)
-    ph_ms, ph_plain = paired_ms(
+    ph_plain, ph_issue = paired(
         lambda: rng.philox_uniform_reference(key, shape, device=dev),
-        lambda: rng.philox_uniform(key, shape, device=dev))
+        lambda: rng.philox_uniform(key, shape, device=dev), issue_ms)
     kw = dict(kw0, phong=True, atten_kind="sqr")
-    fu_ms, fu_plain = paired_ms(
+    fu_plain, fu_issue = paired(
         lambda: fused_shadow.fused_chunk_reference(u, px, scal_f, n_valid,
                                                    **kw),
-        lambda: fused_shadow.fused_chunk(u, px, scal_f, n_valid, **kw))
-    phase(6, f"chunk lc=40 P=65536 ms: philox kernel {ph_ms:.4f} plain "
-             f"{ph_plain:.4f}; fused kernel {fu_ms:.4f} plain {fu_plain:.4f}")
+        lambda: fused_shadow.fused_chunk(u, px, scal_f, n_valid, **kw),
+        issue_ms)
+    phase(6, f"chunk lc=40 P=65536 issue ms (CUDA events, 20 calls issued "
+             f"one by one): philox kernel {mean(ph_issue):.4f} plain "
+             f"{mean(ph_plain):.4f}; fused kernel {mean(fu_issue):.4f} "
+             f"plain {mean(fu_plain):.4f}")
 
     # -- phase 7: visit-order kernel against plain, bit-equal -------------
     msc = reorder_scene(load_scene(MESH_SCENE))
@@ -352,8 +459,8 @@ def main() -> int:
     o1 = o_all[mid * MESH_TILE:(mid + 1) * MESH_TILE].contiguous()  # meshes
     d1 = d_all[mid * MESH_TILE:(mid + 1) * MESH_TILE].contiguous()
     n_ok, sp1, vo_err = compare_visit(o1, d1, lo, hi, V)
-    calls = record_visit_calls(msc.static, msc.params, cfg, 64, 32, dev,
-                               args.seed)              # one 2048-px tile
+    calls, mesh_draws = record_mesh_calls(msc.static, msc.params, cfg, 64,
+                                          32, dev, args.seed)  # one tile
     check(len(calls) >= 2 and calls[1][0].shape[0] == MESH_TILE,
           f"a reflection round: {len(calls)} visit calls")
     n_ok2, sp2, err2 = compare_visit(*calls[1])
@@ -365,11 +472,33 @@ def main() -> int:
     n_ok3, sp3, err3 = compare_visit(ro, rd, lo, hi, 64, cmd)
     err4 = compare_visit(ro[:300].contiguous(), rd[:300].contiguous(), lo,
                          hi, V)[2]
-    vo_err = max(vo_err, err2, err3, err4)
+    # ties across a slice and a cluster boundary of the call's own split:
+    # boxes around each boundary that hold every origin (entry 0 for every
+    # ray) and copies of the box most first-round rays enter first
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = pallas_visit.visit_split(MESH_TILE, K, V, n_sm)
+    check(split.cluster >= 2, f"a cluster boundary: {split}")
+    pc, pe, _ = pallas_visit.visit_order_reference(o1, d1, lo, hi, V)
+    first = int(torch.mode(pc[:, 0][pe[:, 0] < pallas_visit.FLT_MAX])[0])
+    lo_t, hi_t = lo.clone(), hi.clone()
+    for b in (split.slice, split.slice * split.warps):
+        lo_t[b - 2:b + 2], hi_t[b - 2:b + 2] = -1e4, 1e4
+        for i in (b - 3, b + 2):
+            lo_t[i], hi_t[i] = lo[first], hi[first]
+    n_ok5, sp5, err5 = compare_visit(o1, d1, lo_t, hi_t, V)
+    ragged = []
+    for k, v in ((K - 3, V), (1001, V), (5, 5), (5, 3)):
+        lo_k, hi_k = lo[:k].contiguous(), hi[:k].contiguous()
+        ragged.append(compare_visit(*aimed_rays(lo_k, hi_k, MESH_TILE, gen),
+                                    lo_k, hi_k, v))
+    vo_err = max(vo_err, err2, err3, err4, err5, *(r[2] for r in ragged))
     phase(7, f"visit-order kernel bit-equal to plain at K={K}: first round "
              f"R={MESH_TILE} V={V} ({n_ok} ok slots, spill max {sp1}); "
              f"reflection round ({n_ok2}, {sp2}); random rays V=64 with "
-             f"count_max_dist ({n_ok3}, {sp3}); R=300")
+             f"count_max_dist ({n_ok3}, {sp3}); R=300; ties across slice "
+             f"and cluster boundaries of {split} ({n_ok5}, {sp5}); K="
+             f"{K - 3}, 1001, 5 (V=5, 3) "
+             f"{[(r[0], r[1]) for r in ragged]}")
 
     # -- phase 8: 64x64 mesh frame on the card against the CPU ------------
     mframes = [render_on(d, msc.static, msc.params, cfg, 64, args.seed)
@@ -399,29 +528,108 @@ def main() -> int:
              f"rays/s; peak {mpeak / 2**20:.1f} MiB; launches {mlaunches}; "
              f"spill max shadow {mst['shadow_spill_max']:.0f} visit "
              f"{mst['visit_spill_max']:.0f}")
-    vo_ms, vo_plain = paired_ms(
+    vo_plain, vo_issue = paired(
         lambda: pallas_visit.visit_order_reference(o1, d1, lo, hi, V),
-        lambda: pallas_visit.visit_order(o1, d1, lo, hi, V))
-    phase(9, f"visit order R={MESH_TILE} K={K} V={V} ms: kernel "
-             f"{vo_ms:.4f} plain {vo_plain:.4f}")
+        lambda: pallas_visit.visit_order(o1, d1, lo, hi, V), issue_ms)
+    phase(9, f"visit order R={MESH_TILE} K={K} V={V} issue ms (CUDA "
+             f"events, 20 calls issued one by one): kernel "
+             f"{mean(vo_issue):.4f} plain {mean(vo_plain):.4f}")
+
+    # -- phase 10: device times against bounds ----------------------------
+    per_frame = {name: {"dense": launches.get(name, 0) / 3,
+                        "mesh": mlaunches.get(name, 0) / 3}
+                 for name in ("philox_uniform", "fused_shadow_chunk",
+                              "visit_order")}
+    phase(10, f"launches per frame {per_frame}")
+    plain_dev = {
+        "philox_uniform": device_ms(
+            lambda: rng.philox_uniform_reference(key, shape, device=dev), 10),
+        "fused_shadow_chunk": device_ms(
+            lambda: fused_shadow.fused_chunk_reference(
+                u, px, scal_f, n_valid, **kw0), 10),
+        "visit_order": device_ms(
+            lambda: pallas_visit.visit_order_reference(o1, d1, lo, hi, V),
+            10)}
+    phase(10, f"plain versions, device ms at the headline shapes "
+              f"{plain_dev}")
+    times = collections.defaultdict(list)
+    # kernel 1, paired with torch.rand (library, kernel, kernel, library)
+    mesh_draw = collections.Counter(mesh_draws).most_common(1)[0][0]
+    for shp in (shape, mesh_draw):
+        n = 1
+        for s in shp:
+            n *= s
+        lib_runs, dev_runs = paired(
+            lambda: torch.rand(shp, generator=gen, device=dev),
+            lambda: rng.philox_uniform(key, shp, device=dev), device_ms)
+        times["philox_uniform"].append(time_line(
+            f"philox {shp}", dev_runs, bound_ms(4 * n, 0),
+            library_ms=mean(lib_runs), library_runs=lib_runs,
+            issue_ms=issue_ms(
+                lambda: rng.philox_uniform(key, shp, device=dev))))
+    # kernel 2: the first chunk of the first and of the second round
+    chunk2 = [x.to(dev) if torch.is_tensor(x) else x for x in chunk2]
+    for what, (cu, cpx, csf, cnv, ckw) in (
+            ("round 1", (u, px, scal_f, n_valid, kw0)), ("round 2", chunk2)):
+        P = cpx.shape[1]
+        live = int((cpx[16] > 0).sum())
+        samples = live * min(ckw["lc"], cnv)
+        ops = samples * (FUSED_OPS_PER_SAMPLE
+                         + FUSED_OPS_PER_SPHERE * (ckw["ns"] - 1)
+                         + FUSED_OPS_PER_PLANE * ckw["npl"])
+        need = 4 * (2 * samples + P + 16 * live + csf.numel() + 3 * P)
+
+        def run(cu=cu, cpx=cpx, csf=csf, cnv=cnv, ckw=ckw):
+            return fused_shadow.fused_chunk(cu, cpx, csf, cnv, **ckw)
+
+        times["fused_shadow_chunk"].append(time_line(
+            f"fused chunk {what} lc={ckw['lc']} P={P} ({live} live pixels, "
+            f"{samples} live samples)", [device_ms(run), device_ms(run)],
+            bound_ms(need, ops), issue_ms=issue_ms(run)))
+    # kernel 3: the mid tile's first round, the 64x32 frame's first and
+    # reflection rounds
+    for what, (co, cd, clo, chi, cv) in (
+            ("first round, mid tile", (o1, d1, lo, hi, V)),
+            ("first round, 64x32 frame", calls[0]),
+            ("reflection round, 64x32 frame", calls[1])):
+        R_, K_ = co.shape[0], clo.shape[0]
+        live = int((torch.isfinite(co).all(1)
+                    & torch.isfinite(cd).all(1)).sum())
+
+        def run(co=co, cd=cd, clo=clo, chi=chi, cv=cv):
+            return pallas_visit.visit_order(co, cd, clo, chi, cv)
+
+        times["visit_order"].append(time_line(
+            f"visit order {what} R={R_} K={K_} V={cv}",
+            [device_ms(run), device_ms(run)],
+            bound_ms(4 * (6 * R_ + 6 * K_ + 2 * R_ * cv + R_),
+                     VISIT_OPS_PER_BOX * live * K_),
+            issue_ms=issue_ms(run), split=str(pallas_visit.visit_split(
+                R_, K_, cv, n_sm))))
+
+    def row(name, source, replaces, n_launches, err, issue, library):
+        head = times[name][0]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n_launches,
+                "max_abs_err": err, "ms": head["device_ms"],
+                "device_ms": head["device_ms"], "issue_ms": mean(issue),
+                "plain_ms": plain_dev[name], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"], "library_ms": library,
+                "launches_per_frame": per_frame[name],
+                "shapes": times[name]}
 
     print(json.dumps({"kernels": [
-        {"name": "philox_uniform", "route": "cuda",
-         "source": "c_raytracer_tpu_torch/csrc/philox.cu",
-         "replaces": "c_raytracer_tpu/core/rng.py:103",
-         "launches": launches["philox_uniform"]
-         + mlaunches["philox_uniform"], "max_abs_err": 0.0,
-         "ms": ph_ms, "plain_ms": ph_plain},
-        {"name": "fused_shadow_chunk", "route": "cuda",
-         "source": "c_raytracer_tpu_torch/csrc/fused_shadow.cu",
-         "replaces": "c_raytracer_tpu/render/fused_shadow.py:195",
-         "launches": launches["fused_shadow_chunk"],
-         "max_abs_err": fused_err, "ms": fu_ms, "plain_ms": fu_plain},
-        {"name": "visit_order", "route": "cuda",
-         "source": "c_raytracer_tpu_torch/csrc/visit_order.cu",
-         "replaces": "c_raytracer_tpu/accel/pallas_visit.py:98",
-         "launches": mlaunches["visit_order"], "max_abs_err": vo_err,
-         "ms": vo_ms, "plain_ms": vo_plain},
+        row("philox_uniform", "c_raytracer_tpu_torch/csrc/philox.cu",
+            "c_raytracer_tpu/core/rng.py:103",
+            launches["philox_uniform"] + mlaunches["philox_uniform"], 0.0,
+            ph_issue, times["philox_uniform"][0]["library_ms"]),
+        row("fused_shadow_chunk",
+            "c_raytracer_tpu_torch/csrc/fused_shadow.cu",
+            "c_raytracer_tpu/render/fused_shadow.py:195",
+            launches["fused_shadow_chunk"], fused_err, fu_issue, None),
+        row("visit_order", "c_raytracer_tpu_torch/csrc/visit_order.cu",
+            "c_raytracer_tpu/accel/pallas_visit.py:98",
+            mlaunches["visit_order"], vo_err, vo_issue, None),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -182,3 +182,51 @@ def test_fused_chunk_gradients_flow_through_plain_version():
     out.sum().backward()
     assert torch.isfinite(px_t.grad).all() and torch.isfinite(sc_t.grad).all()
     assert px_t.grad.abs().sum() > 0 and sc_t.grad[4:7].abs().sum() > 0
+
+
+def _split_sum(u, px, scal_f, n_valid, slices, **kw):
+    """Kernel 2's sum under its sample split, on the plain version: warp y
+    of a block adds samples y, y + slices, ... of its pixels in order, and
+    the warps' partial sums are added in warp order."""
+    lc = kw["lc"]
+    parts = []
+    for y in range(slices):
+        acc = torch.zeros(3, px.shape[1])
+        for s in range(y, lc, slices):
+            acc = acc + fused_shadow.fused_chunk_reference(
+                u[:, s:s + 1].contiguous(), px, scal_f, int(s < n_valid),
+                **dict(kw, lc=1))
+        parts.append(acc)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+@pytest.mark.parametrize("slices", [1, 4, 8, 16])
+@pytest.mark.parametrize("lc,n_valid", [(40, 40), (16, 12)],
+                         ids=["full", "tail"])
+def test_fused_sample_split_matches_jax(slices, lc, n_valid):
+    """Each sample lands in exactly one warp's partial sum, and the split
+    sum agrees with the JAX chunk within the tolerance of the plain
+    version's own test (rtol 1e-5, atol 1e-6·max): only the order of the
+    additions differs."""
+    ns, npl, egid, P = 4, 2, 2, 1024
+    kw = dict(lc=lc, ns=ns, npl=npl, egid=egid, phong=True, atten_kind="sqr")
+    u, px, scal_f = _chunk_inputs(lc + n_valid, lc, P, ns, npl, egid)
+    ref = jsh._packed_sphere_chunk_ref(True, lc, ns, npl, egid, "sqr")
+    want = np.asarray(ref(jnp.asarray(u), jnp.asarray(px),
+                          jnp.asarray(scal_f), jnp.asarray([n_valid])))
+    t = torch.from_numpy
+    got = _split_sum(t(u), t(px), t(scal_f), n_valid, slices, **kw).numpy()
+    assert want.max() > 0 and (want == 0).any()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * want.max())
+
+
+@pytest.mark.parametrize("slices", [0, fused_shadow.MAX_SLICES + 1])
+def test_fused_launch_refuses_a_split_the_kernel_does_not_take(slices):
+    u, px, scal_f = (torch.from_numpy(x) for x in _chunk_inputs(0, 8, 64, 3,
+                                                                1, 1))
+    with pytest.raises(ValueError, match="slices"):
+        fused_shadow._launch(u, px, scal_f, 8, lc=8, ns=3, npl=1, egid=1,
+                             phong=True, atten_kind="sqr", slices=slices)

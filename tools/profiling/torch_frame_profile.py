@@ -1,7 +1,7 @@
 """Where one frame of the PyTorch port's main path spends its time on a GPU.
 
     python3 tools/profiling/torch_frame_profile.py [--scene scenes/X.json]
-        [--res 1024] [--seed 0]
+        [--res 1024] [--seed 0] [--tree DIR]
 
 Renders a scene (default scenes/spheres_opaque.json; mesh scenes are put in
 Morton order first) under RenderConfig() once to warm up, then once under
@@ -9,8 +9,10 @@ torch.profiler, and prints: the frame's wall seconds, the
 device busy seconds (the sum of CUDA kernel times; one stream, so kernels
 do not overlap), the idle share, the kernel launch count, the host time in
 stream syncs, the kernels with the most device time and the host ops with
-the most self CPU time.  Needs a CUDA
-device; imports the port only (never JAX).
+the most self CPU time, and the device time of each of the port's own
+kernels.  ``--tree`` profiles the port of another checkout's root (to
+compare two commits on one card).  Needs a CUDA device; imports the port
+only (never JAX).
 """
 
 from __future__ import annotations
@@ -27,13 +29,8 @@ from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-sys.path.insert(0, ROOT)
-
-from c_raytracer_tpu_torch.accel import reorder_scene  # noqa: E402
-from c_raytracer_tpu_torch.core import rng  # noqa: E402
-from c_raytracer_tpu_torch.render import RenderConfig  # noqa: E402
-from c_raytracer_tpu_torch.render.api import make_renderer  # noqa: E402
-from c_raytracer_tpu_torch.scene import load_scene  # noqa: E402
+PORT_KERNELS = ("philox_uniform_kernel", "fused_shadow_kernel",
+                "visit_order_kernel")
 
 
 def main() -> None:
@@ -42,7 +39,14 @@ def main() -> None:
                                                     "spheres_opaque.json"))
     ap.add_argument("--res", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tree", default=ROOT)
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.tree))
+    from c_raytracer_tpu_torch.accel import reorder_scene
+    from c_raytracer_tpu_torch.core import rng
+    from c_raytracer_tpu_torch.render import RenderConfig
+    from c_raytracer_tpu_torch.render.api import make_renderer
+    from c_raytracer_tpu_torch.scene import load_scene
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -79,6 +83,11 @@ def main() -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
         print(f"{e.self_device_time_total / 1e3:9.3f} ms  n={e.count:6d}  "
               f"{e.key[:100]}")
+    for name in PORT_KERNELS:
+        mine = [e for e in kernels if name in e.key]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3
+        n = sum(e.count for e in mine)
+        print(f"port kernel {name}: {ms:.3f} ms over {n} launches")
     print("host ops by self CPU time:")
     ops = [e for e in events if e.device_type == DeviceType.CPU]
     for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:12]:
