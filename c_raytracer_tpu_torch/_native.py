@@ -47,12 +47,12 @@ _SIGNATURES = {
                                          ctypes.c_uint32, ctypes.c_uint32,
                                          _PTR)),
     # (u, px, scal_f, out, P, lc, n_valid, ns, npl, egid, phong,
-    #  atten_kind, n_scal, slices, stream)
+    #  atten_kind, n_scal, stream)
     "crt_fused_shadow_chunk": ("fused_shadow.cu",
-                               (_PTR,) * 4 + (_INT,) * 10 + (_PTR,)),
+                               (_PTR,) * 4 + (_INT,) * 9 + (_PTR,)),
     # (o, d, lo, hi, count_max_dist or NULL, cids, entry, spill, R, K, V,
-    #  cluster, warps, slice, tile, stages, smem bytes, stream)
-    "crt_visit_order": ("visit_order.cu", (_PTR,) * 8 + (_INT,) * 9 + (_PTR,)),
+    #  cluster, warps, slice, stream)
+    "crt_visit_order": ("visit_order.cu", (_PTR,) * 8 + (_INT,) * 6 + (_PTR,)),
 }
 
 

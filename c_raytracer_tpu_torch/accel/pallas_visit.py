@@ -14,7 +14,8 @@ id, with the per-ray spill count (overlaps beyond V) — the body of
 * ``visit_split`` — how the kernel divides a call: clusters of blocks
   that hold 32 rays each, every warp scanning one id-contiguous slice of
   the boxes (the kernel merges the warps' lists by (key, id), which the
-  CPU tests model in numpy).
+  CPU tests model in numpy).  The kernel's ring and shared-memory layout
+  are its own compile-time constants; only the split is chosen here.
 
 The JAX package keeps its kernel behind ``RenderConfig.pallas_visit``
 (default "off"), a decision about its TPU toolchain, and its kernel route
@@ -43,11 +44,7 @@ FLT_MAX = float(np.finfo(np.float32).max)
 LIST_SIZES = (8, 16, 32, 64)  # the kernel's compiled list sizes (VM)
 LANES = 32                    # rays per block: one per lane
 MAX_CLUSTER = 8               # the portable thread-block cluster size
-MAX_WARPS = {8: 16, 16: 16, 32: 8, 64: 4}  # by VM: the lists' registers
-SMEM_MAX = 232_448            # dynamic shared memory a block may take
 N_SM_H100 = 132
-TILE = 64                     # boxes per ring stage (a multiple of 4)
-STAGES = 4                    # ring stages per warp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,17 +52,13 @@ class VisitSplit:
     """How kernel 3 divides one call: ``groups`` clusters of ``cluster``
     blocks hold 32 rays each; each of a cluster's ``warps * cluster``
     warps scans ``slice`` boxes, slice ``s`` covering ids
-    [s·slice, (s+1)·slice) ∩ [0, K), and keeps its own sorted ``vm``-list.
-    ``smem`` is the dynamic shared memory of a block, in bytes."""
+    [s·slice, (s+1)·slice) ∩ [0, K), and keeps its own sorted ``vm``-list."""
 
     vm: int
     warps: int
     cluster: int
     groups: int
     slice: int
-    tile: int
-    stages: int
-    smem: int
 
     def slices(self, K: int) -> list[tuple[int, int]]:
         """(start, end) of each warp's slice, in slice order: block rank
@@ -75,48 +68,21 @@ class VisitSplit:
                 for s in range(n)]
 
 
-def _align16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def smem_bytes(vm: int, warps: int, tile: int, stages: int) -> int:
-    """A block's dynamic shared memory: the ring mbarriers; the box ring
-    (lo and hi of ``tile`` boxes per stage and warp), which the warps'
-    lists and counts reuse once the scan is done; the block's merged list
-    and counts."""
-    bars = _align16(8 * warps * stages)
-    ring = 24 * tile * stages * warps
-    lists = 4 * warps * LANES * (2 * vm + 2)
-    block = 4 * LANES * (2 * vm + 2)
-    return bars + _align16(max(ring, lists)) + block
-
-
-def visit_split(R: int, K: int, V: int, n_sm: int = N_SM_H100, *,
-                warps: int | None = None,
-                cluster: int | None = None) -> VisitSplit:
-    """The split of an (R rays, K boxes, V visits) call.  By default 8
-    warps a block (4 at VM = 64, whose lists take twice the registers) and
-    the smallest cluster in 1, 2, 4, 8 that puts a block on each of the
-    ``n_sm`` SMs (R = 2048: 64 ray groups × 4); slices are multiples of 4
-    boxes, so every slice and ring tile starts 16-byte aligned."""
+def visit_split(R: int, K: int, V: int, n_sm: int = N_SM_H100) -> VisitSplit:
+    """The split of an (R rays, K boxes, V visits) call on a card of
+    ``n_sm`` SMs: 8 warps a block (4 at VM = 64, whose lists take twice the
+    registers) and the smallest cluster in 1, 2, 4, 8 that puts a block on
+    each SM (R = 2048: 64 ray groups × 4); slices are multiples of 4 boxes,
+    so every slice and ring tile starts 16-byte aligned."""
     if not 1 <= V <= LIST_SIZES[-1]:
         raise ValueError(f"visit_order: V={V} outside 1..{LIST_SIZES[-1]}")
     vm = next(v for v in LIST_SIZES if v >= V)
     groups = -(-R // LANES)
-    if warps is None:
-        warps = 8 if vm <= 32 else 4
-    if cluster is None:
-        cluster = next((c for c in (1, 2, 4) if groups * c >= n_sm),
-                       MAX_CLUSTER)
-    if not (1 <= warps <= MAX_WARPS[vm] and 1 <= cluster <= MAX_CLUSTER):
-        raise ValueError(f"visit_order: {warps} warps, cluster {cluster}")
+    warps = 8 if vm <= 32 else 4
+    cluster = next((c for c in (1, 2, 4) if groups * c >= n_sm), MAX_CLUSTER)
     per = -(-K // (warps * cluster))
-    smem = smem_bytes(vm, warps, TILE, STAGES)
-    if smem > SMEM_MAX:
-        raise ValueError(f"visit_order: {smem} bytes of shared memory")
     return VisitSplit(vm=vm, warps=warps, cluster=cluster, groups=groups,
-                      slice=-(-per // 4) * 4, tile=TILE, stages=STAGES,
-                      smem=smem)
+                      slice=-(-per // 4) * 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,11 +112,9 @@ def visit_order_reference(o, d, lo, hi, V: int, count_max_dist=None):
     return idx[:, :V].to(torch.int32), vals[:, :V].contiguous(), spill
 
 
-def visit_order(o, d, lo, hi, V: int, count_max_dist=None, *,
-                split: VisitSplit | None = None):
+def visit_order(o, d, lo, hi, V: int, count_max_dist=None):
     """(cids, entry, spill) of the V nearest clusters per ray: kernel 3 for
-    CUDA tensors, the plain version for CPU tensors.  ``split`` overrides
-    ``visit_split``'s choice for the card (for timing other splits)."""
+    CUDA tensors, the plain version for CPU tensors."""
     V, K = int(V), lo.shape[0]
     if not 1 <= V <= K:
         raise ValueError(f"visit_order: V={V} outside 1..K={K}")
@@ -174,8 +138,7 @@ def visit_order(o, d, lo, hi, V: int, count_max_dist=None, *,
         if x.data_ptr() % 16:
             raise ValueError(f"visit_order: {name} must start 16-byte "
                              f"aligned")
-    if split is None:
-        split = visit_split(R, K, V, _sm_count(o.device))
+    split = visit_split(R, K, V, _sm_count(o.device))
     cids = torch.empty((R, V), dtype=torch.int32, device=o.device)
     entry = torch.empty((R, V), dtype=torch.float32, device=o.device)
     spill = torch.empty((R,), dtype=torch.int32, device=o.device)
@@ -185,8 +148,7 @@ def visit_order(o, d, lo, hi, V: int, count_max_dist=None, *,
             o.data_ptr(), d.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             None if count_max_dist is None else count_max_dist.data_ptr(),
             cids.data_ptr(), entry.data_ptr(), spill.data_ptr(), R, K, V,
-            split.cluster, split.warps, split.slice, split.tile,
-            split.stages, split.smem, stream)
+            split.cluster, split.warps, split.slice, stream)
     _native.check(err, "visit_order")
     visit_order.launches += 1
     return cids, entry, spill

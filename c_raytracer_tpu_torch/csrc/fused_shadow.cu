@@ -24,10 +24,10 @@
 // all lc samples: 65,536 threads, ~16 warps an SM, each warp a serial chain
 // of 40 samples that nothing hid, so a chunk took as long with a tenth of its
 // pixels live as with half.  This design splits each pixel's samples over
-// the S warps of a block (blockDim = (32, S), S from the wrapper, 8 by
-// default): lane x of every warp holds pixel blockIdx.x * 32 + x, and warp y
-// takes samples y, y + S, ... (a warp's u loads stay 128 contiguous bytes).
-// The chain per thread is lc / S samples and the SMs hold S times the warps.
+// the kSlices = 8 warps of a block (blockDim = (32, 8)): lane x of every
+// warp holds pixel blockIdx.x * 32 + x, and warp y takes samples y, y + 8,
+// ... (a warp's u loads stay 128 contiguous bytes).  The chain per thread is
+// lc / 8 samples and the SMs hold 8 times the warps.
 // The warps' partial sums meet in shared memory and warp 0 adds them in warp
 // order, so the sum has a fixed order.  A block whose 32 pixels have no
 // live sample (most blocks of a late round, where the chunk's time is that
@@ -37,14 +37,14 @@
 // shininess-only parts of powf (integral, odd) are computed once per pixel,
 // and Phong/Blinn x none/lin/sqr are template parameters; ns, npl, egid and
 // n_valid stay runtime ints.  Each block masks its own ragged edge, so P
-// need not be a multiple of 32.  Measured with
-// tools/profiling/kernel_check.py on an H100 80GB HBM3 at 700 W, on the
-// dense stand-in's first-round chunk (lc = 40, P = 65,536): 0.033 ms,
-// against 0.074 ms for one thread per pixel; 4 and 8 warps tie, 16 lose.
+// need not be a multiple of 32.  Measured on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py phase 10; PERF.md), on the dense stand-in's first-round
+// chunk (lc = 40, P = 65,536): 0.032 ms, against 0.074 ms for one thread
+// per pixel; a sweep of 1-16 warps a block found 4 and 8 tied and 16 slower.
 //
 // C ABI (bound with ctypes in c_raytracer_tpu_torch/_native.py): returns
 // the launch's cudaError_t (0 means launched), or cudaErrorInvalidValue for
-// a split the kernel does not take.
+// an attenuation kind outside none/lin/sqr.
 
 #include <cmath>
 #include <cstdint>
@@ -55,7 +55,7 @@ namespace {
 constexpr int kEmitF = 8;
 constexpr int kPxRows = 17;
 constexpr int kLanes = 32;    // pixels per block: one per lane
-constexpr int kMaxSlices = 16;  // warps per block
+constexpr int kSlices = 8;    // warps per block: the samples' split
 constexpr float kPi2 = 2.0f * 3.1415927f;  // 2·PI in float32 (type.h:32)
 
 __device__ __forceinline__ float where_nonzero_inv(float x) {
@@ -84,13 +84,13 @@ __device__ __forceinline__ float fmax0_powf(float b, float e, bool is_int,
 
 // Dynamic shared memory: the scene scalars, the block's pixel rows, the
 // warps' partial sums.
-size_t smem_bytes(int n_scal, int slices) {
+size_t smem_bytes(int n_scal) {
   return sizeof(float) *
-         (static_cast<size_t>(n_scal) + kPxRows * kLanes + 3 * slices * kLanes);
+         (static_cast<size_t>(n_scal) + kPxRows * kLanes + 3 * kSlices * kLanes);
 }
 
 template <bool kPhong, int kAtten>
-__global__ void __launch_bounds__(kLanes * kMaxSlices)
+__global__ void __launch_bounds__(kLanes * kSlices)
 fused_shadow_kernel(const float* __restrict__ u,
                     const float* __restrict__ px,
                     const float* __restrict__ scal_g, float* __restrict__ out,
@@ -99,8 +99,8 @@ fused_shadow_kernel(const float* __restrict__ u,
   extern __shared__ float smem[];
   float* scal = smem;                           // [n_scal]
   float* spx = scal + n_scal;                   // [17][32]
-  float* part = spx + kPxRows * kLanes;         // [3][S][32]
-  const int S = blockDim.y;
+  float* part = spx + kPxRows * kLanes;         // [3][kSlices][32]
+  constexpr int S = kSlices;
   const int lane = threadIdx.x;
   const int slice = threadIdx.y;
   const int tid = slice * kLanes + lane;
@@ -248,16 +248,16 @@ fused_shadow_kernel(const float* __restrict__ u,
 template <bool kPhong, int kAtten>
 cudaError_t launch(const float* u, const float* px, const float* scal_f,
                    float* out, int P, int lc, int n_valid, int ns, int npl,
-                   int egid, int n_scal, int slices, cudaStream_t stream) {
+                   int egid, int n_scal, cudaStream_t stream) {
   auto* kernel = fused_shadow_kernel<kPhong, kAtten>;
-  const size_t smem = smem_bytes(n_scal, slices);
+  const size_t smem = smem_bytes(n_scal);
   if (smem > 48 * 1024) {  // a scene of many spheres and planes
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<(P + kLanes - 1) / kLanes, dim3(kLanes, slices), smem, stream>>>(
+  kernel<<<(P + kLanes - 1) / kLanes, dim3(kLanes, kSlices), smem, stream>>>(
       u, px, scal_f, out, P, lc, n_valid, ns, npl, egid, n_scal);
   return cudaGetLastError();
 }
@@ -265,14 +265,14 @@ cudaError_t launch(const float* u, const float* px, const float* scal_f,
 }  // namespace
 
 // (u, px, scal_f, out, P, lc, n_valid, ns, npl, egid, phong, atten_kind,
-//  n_scal, slices, stream)
+//  n_scal, stream)
 extern "C" int crt_fused_shadow_chunk(void* u, void* px, void* scal_f,
                                       void* out, int P, int lc, int n_valid,
                                       int ns, int npl, int egid, int phong,
-                                      int atten_kind, int n_scal, int slices,
+                                      int atten_kind, int n_scal,
                                       void* stream) {
   if (P <= 0) return static_cast<int>(cudaGetLastError());
-  if (slices < 1 || slices > kMaxSlices || atten_kind < 0 || atten_kind > 2) {
+  if (atten_kind < 0 || atten_kind > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* fu = static_cast<const float*>(u);
@@ -281,11 +281,11 @@ extern "C" int crt_fused_shadow_chunk(void* u, void* px, void* scal_f,
   auto* fo = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   using Fn = cudaError_t (*)(const float*, const float*, const float*, float*,
-                             int, int, int, int, int, int, int, int,
+                             int, int, int, int, int, int, int,
                              cudaStream_t);
   static constexpr Fn kLaunch[2][3] = {
       {launch<false, 0>, launch<false, 1>, launch<false, 2>},
       {launch<true, 0>, launch<true, 1>, launch<true, 2>}};
   return static_cast<int>(kLaunch[phong ? 1 : 0][atten_kind](
-      fu, fp, fs, fo, P, lc, n_valid, ns, npl, egid, n_scal, slices, s));
+      fu, fp, fs, fo, P, lc, n_valid, ns, npl, egid, n_scal, s));
 }

@@ -43,10 +43,15 @@
 // counts add up to the spill.  The first V of the merged lists are exact:
 // an entry among a ray's V smallest is among the VM smallest of its slice.
 //
-// Measured with tools/profiling/kernel_check.py on an H100 80GB HBM3 at
-// 700 W: 0.054 ms at R = 2048, K = 8,556, V = 16, against 0.44 ms for the
-// earlier design of one warp per block scanning all K boxes.  VM = 64 (the
-// transparent scenes' V) needs 255 registers and spills a few hundred
+// The ring's tile (64 boxes) and depth (4 stages) are compile-time
+// constants, and the block's shared-memory layout (smem_bytes) lives here
+// only; a static_assert holds the largest block of every list size to the
+// 227 KB an H100 block may take.
+//
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 10;
+// PERF.md): 0.054 ms at R = 2048, K = 8,556, V = 16, against 0.44 ms for
+// the earlier design of one warp per block scanning all K boxes.  VM = 64
+// (the transparent scenes' V) needs 255 registers and spills a few hundred
 // bytes a thread; it runs 4 warps a block.
 //
 // C ABI (bound with ctypes in c_raytracer_tpu_torch/_native.py): returns
@@ -62,7 +67,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kLanes = 32;  // rays per block
+constexpr int kLanes = 32;      // rays per block
+constexpr int kTile = 64;       // boxes per ring stage, a multiple of 4
+constexpr int kStages = 4;      // ring stages per warp
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may take
 
 struct Params {
   const float* o;
@@ -74,9 +82,7 @@ struct Params {
   float* entry;
   int32_t* spill;
   int R, K, V;
-  int slice;   // boxes per warp slice, a multiple of 4
-  int tile;    // boxes per ring stage, a multiple of 4
-  int stages;  // ring stages per warp
+  int slice;  // boxes per warp slice, a multiple of 4
 };
 
 // Most warps a block of list size VM may have: the lists live in
@@ -89,16 +95,25 @@ __host__ __device__ constexpr int align16(int n) {
   return (n + 15) / 16 * 16;
 }
 
-// Dynamic shared memory of a block (pallas_visit.smem_bytes): the ring
-// mbarriers; the ring, which the warps' lists and counts reuse after the
-// scan; the block's merged list and counts.
-int smem_bytes(int vm, int warps, int tile, int stages) {
-  const int bars = align16(8 * warps * stages);
-  const int ring = 24 * tile * stages * warps;
-  const int lists = 4 * warps * kLanes * (2 * vm + 2);
-  const int block = 4 * kLanes * (2 * vm + 2);
-  return bars + align16(ring > lists ? ring : lists) + block;
+// A block's dynamic shared memory, in three parts: the ring mbarriers
+// (bars_bytes); the ring, which the warps' lists and counts reuse after
+// the scan (ring_bytes); the block's merged list and counts.
+__host__ __device__ constexpr int bars_bytes(int warps) {
+  return align16(8 * warps * kStages);
 }
+__host__ __device__ constexpr int ring_bytes(int vm, int warps) {
+  const int ring = 24 * kTile * kStages * warps;
+  const int lists = 4 * warps * kLanes * (2 * vm + 2);
+  return align16(ring > lists ? ring : lists);
+}
+__host__ __device__ constexpr int smem_bytes(int vm, int warps) {
+  return bars_bytes(warps) + ring_bytes(vm, warps) + 4 * kLanes * (2 * vm + 2);
+}
+static_assert(smem_bytes(8, max_warps(8)) <= kSmemMax &&
+                  smem_bytes(16, max_warps(16)) <= kSmemMax &&
+                  smem_bytes(32, max_warps(32)) <= kSmemMax &&
+                  smem_bytes(64, max_warps(64)) <= kSmemMax,
+              "the largest block of each list size must fit shared memory");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -117,7 +132,7 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// Ring stage t % stages of one warp <- boxes [b0, b0 + nb) of lo and hi.
+// Ring stage t % kStages of one warp <- boxes [b0, b0 + nb) of lo and hi.
 // Lane 0 starts the bulk copies of the whole 16-byte words; a ragged tail
 // (< 4 floats per array, only where the slice ends at K) is copied by
 // lanes with plain loads.  Slices and tiles start at multiples of 4 boxes,
@@ -125,7 +140,7 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ void issue(const Params& p, float* slo,
                                       uint64_t* bar, int b0, int nb,
                                       int lane) {
-  float* shi = slo + 3 * p.tile;
+  float* shi = slo + 3 * kTile;
   const float* glo = p.lo + 3 * static_cast<int64_t>(b0);
   const float* ghi = p.hi + 3 * static_cast<int64_t>(b0);
   const int nf = 3 * nb;
@@ -226,21 +241,18 @@ visit_order_kernel(const Params p) {
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int r = (blockIdx.x / C) * kLanes + lane;
-  const int S = p.stages;
-  const int T = p.tile;
+  constexpr int S = kStages;
+  constexpr int T = kTile;
 
-  const int bars_bytes = align16(8 * W * S);
-  const int ring_bytes = 24 * T * S * W;
-  const int list_bytes = 4 * W * kLanes * (2 * VM + 2);
+  const int ring0 = bars_bytes(W);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem) + warp * S;
-  float* ring = reinterpret_cast<float*>(smem + bars_bytes) + warp * S * 6 * T;
-  float* wkey = reinterpret_cast<float*>(smem + bars_bytes);  // [W][VM][32]
+  float* ring = reinterpret_cast<float*>(smem + ring0) + warp * S * 6 * T;
+  float* wkey = reinterpret_cast<float*>(smem + ring0);       // [W][VM][32]
   int* wid = reinterpret_cast<int*>(wkey + W * VM * kLanes);  // [W][VM][32]
   int* wn = wid + W * VM * kLanes;                            // [W][32]
   int* wcnt = wn + W * kLanes;                                // [W][32]
-  float* bkey = reinterpret_cast<float*>(
-      smem + bars_bytes +
-      align16(ring_bytes > list_bytes ? ring_bytes : list_bytes));  // [VM][32]
+  float* bkey =
+      reinterpret_cast<float*>(smem + ring0 + ring_bytes(VM, W));  // [VM][32]
   int* bid = reinterpret_cast<int*>(bkey + VM * kLanes);            // [VM][32]
   int* bn = bid + VM * kLanes;                                      // [32]
   int* bcnt = bn + kLanes;                                          // [32]
@@ -402,11 +414,10 @@ visit_order_kernel(const Params p) {
 }
 
 template <int VM>
-cudaError_t launch(const Params& p, int groups, int C, int W, int smem,
+cudaError_t launch(const Params& p, int groups, int C, int W,
                    cudaStream_t stream) {
-  if (W > max_warps(VM) || smem != smem_bytes(VM, W, p.tile, p.stages)) {
-    return cudaErrorInvalidValue;
-  }
+  if (W > max_warps(VM)) return cudaErrorInvalidValue;
+  const int smem = smem_bytes(VM, W);
   auto* kernel = visit_order_kernel<VM>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -429,17 +440,15 @@ cudaError_t launch(const Params& p, int groups, int C, int W, int smem,
 }  // namespace
 
 // (o, d, lo, hi, count_max_dist or NULL, cids, entry, spill, R, K, V,
-//  cluster, warps, slice, tile, stages, smem bytes, stream)
+//  cluster, warps, slice, stream)
 extern "C" int crt_visit_order(const void* o, const void* d, const void* lo,
                                const void* hi, const void* count_max_dist,
                                void* cids, void* entry, void* spill, int R,
                                int K, int V, int cluster, int warps,
-                               int slice, int tile, int stages, int smem,
-                               void* stream) {
+                               int slice, void* stream) {
   if (R <= 0) return static_cast<int>(cudaGetLastError());
   if (V < 1 || K < 1 || cluster < 1 || cluster > 8 || warps < 1 ||
-      slice < 4 || slice % 4 != 0 || tile < 4 || tile % 4 != 0 ||
-      stages < 1 ||
+      slice < 4 || slice % 4 != 0 ||
       static_cast<int64_t>(slice) * warps * cluster < K) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -456,19 +465,17 @@ extern "C" int crt_visit_order(const void* o, const void* d, const void* lo,
   p.K = K;
   p.V = V;
   p.slice = slice;
-  p.tile = tile;
-  p.stages = stages;
   const int groups = (R + kLanes - 1) / kLanes;
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (V <= 8) {
-    err = launch<8>(p, groups, cluster, warps, smem, s);
+    err = launch<8>(p, groups, cluster, warps, s);
   } else if (V <= 16) {
-    err = launch<16>(p, groups, cluster, warps, smem, s);
+    err = launch<16>(p, groups, cluster, warps, s);
   } else if (V <= 32) {
-    err = launch<32>(p, groups, cluster, warps, smem, s);
+    err = launch<32>(p, groups, cluster, warps, s);
   } else if (V <= 64) {
-    err = launch<64>(p, groups, cluster, warps, smem, s);
+    err = launch<64>(p, groups, cluster, warps, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

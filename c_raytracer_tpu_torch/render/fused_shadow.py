@@ -10,10 +10,10 @@ kernel of ``c_raytracer_tpu/render/fused_shadow.py`` (``_run``/``_kernel``).
 
 On the H100 the chunk is bound by the ALU (four sin/cos, two sqrt, a powf
 and the occluder tests per sample against 8 bytes of uniforms read).  A
-block holds 32 pixels, one per lane, and ``SLICES`` warps; each warp takes
-every ``SLICES``-th sample of its pixels, and the warps' partial sums are
-added in warp order in shared memory, so nothing between the uniform draw
-and the (3, P) sums goes to device memory.
+block holds 32 pixels, one per lane, and 8 warps; each warp takes every
+8th sample of its pixels, and the warps' partial sums are added in warp
+order in shared memory, so nothing between the uniform draw and the (3, P)
+sums goes to device memory.
 
 Packed operands, as in the JAX package: ``u (2, lc, P)`` uniforms,
 ``px (17, P)`` per-pixel rows (hit point, normal, ray direction, texture
@@ -41,8 +41,6 @@ from c_raytracer_tpu_torch.render import shading
 EMIT_F = 8            # emitter floats at the head of scal_f
 PX_ROWS = 17
 ATTEN_KINDS = {"none": 0, "lin": 1, "sqr": 2}
-SLICES = 8            # kernel 2's warps per block: the samples' split
-MAX_SLICES = 16
 
 
 def fused_chunk_reference(u, px, scal_f, n_valid: int, *, lc, ns, npl, egid,
@@ -118,12 +116,8 @@ def fused_chunk_reference(u, px, scal_f, n_valid: int, *, lc, ns, npl, egid,
 
 
 def _launch(u, px, scal_f, n_valid: int, *, lc, ns, npl, egid, phong,
-            atten_kind, slices: int = SLICES):
-    """Check the operands and launch kernel 2 on the current stream, each
-    pixel's samples split over ``slices`` warps."""
-    if not 1 <= slices <= MAX_SLICES:
-        raise ValueError(f"fused_chunk: slices={slices} outside "
-                         f"1..{MAX_SLICES}")
+            atten_kind):
+    """Check the operands and launch kernel 2 on the current stream."""
     P = px.shape[-1]
     want = {"u": (u, (2, lc, P)), "px": (px, (PX_ROWS, P)),
             "scal_f": (scal_f, (EMIT_F + 5 * ns + 5 * npl,))}
@@ -140,7 +134,7 @@ def _launch(u, px, scal_f, n_valid: int, *, lc, ns, npl, egid, phong,
         err = _native.lib().crt_fused_shadow_chunk(
             u.data_ptr(), px.data_ptr(), scal_f.data_ptr(), out.data_ptr(),
             P, lc, int(n_valid), ns, npl, egid, int(bool(phong)),
-            ATTEN_KINDS[atten_kind], scal_f.numel(), slices, stream)
+            ATTEN_KINDS[atten_kind], scal_f.numel(), stream)
     _native.check(err, "fused_chunk")
     fused_chunk.launches += 1
     return out

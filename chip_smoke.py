@@ -98,27 +98,32 @@ def issue_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, n: int = 50) -> float:
+def device_ms(fn, n: int = 50, tries: int = 3) -> float:
     """Device milliseconds per call of fn() over n calls under
     torch.profiler: for a call that launches one kernel, that kernel's
     recorded time over its recorded count (the profiler may drop the first
     few records of a run); for a plain version of many kernels, their
-    recorded time over n."""
+    recorded time over n.  A profile that came back with fewer than 4/5 of
+    the records (now and then it holds none) is taken again, up to
+    ``tries`` profiles in all."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    us = sum(e.self_device_time_total for e in kernels)
-    count = sum(e.count for e in kernels)
-    check(us > 0 and count >= n * 4 // 5,
-          f"torch.profiler recorded {us} us over "
-          f"{[(e.key[:60], e.count) for e in kernels]}")
-    return us / (count if len(kernels) == 1 else n) / 1e3
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in kernels)
+        count = sum(e.count for e in kernels)
+        what = (f"torch.profiler recorded {us} us over "
+                f"{[(e.key[:60], e.count) for e in kernels]}")
+        if us > 0 and count >= n * 4 // 5:
+            return us / (count if len(kernels) == 1 else n) / 1e3
+        print(f"[phase 10] profile {attempt} of {tries}: {what}", flush=True)
+    check(False, what)
 
 
 def paired(first, second, timer) -> tuple[list[float], list[float]]:

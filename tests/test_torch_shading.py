@@ -210,7 +210,9 @@ def test_fused_sample_split_matches_jax(slices, lc, n_valid):
     """Each sample lands in exactly one warp's partial sum, and the split
     sum agrees with the JAX chunk within the tolerance of the plain
     version's own test (rtol 1e-5, atol 1e-6·max): only the order of the
-    additions differs."""
+    additions differs.  Kernel 2 compiles 8 warps a block (``kSlices`` in
+    ``csrc/fused_shadow.cu``); the other splits hold the order of the sum
+    to that tolerance for any warp count the constant might take."""
     ns, npl, egid, P = 4, 2, 2, 1024
     kw = dict(lc=lc, ns=ns, npl=npl, egid=egid, phong=True, atten_kind="sqr")
     u, px, scal_f = _chunk_inputs(lc + n_valid, lc, P, ns, npl, egid)
@@ -221,12 +223,3 @@ def test_fused_sample_split_matches_jax(slices, lc, n_valid):
     got = _split_sum(t(u), t(px), t(scal_f), n_valid, slices, **kw).numpy()
     assert want.max() > 0 and (want == 0).any()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * want.max())
-
-
-@pytest.mark.parametrize("slices", [0, fused_shadow.MAX_SLICES + 1])
-def test_fused_launch_refuses_a_split_the_kernel_does_not_take(slices):
-    u, px, scal_f = (torch.from_numpy(x) for x in _chunk_inputs(0, 8, 64, 3,
-                                                                1, 1))
-    with pytest.raises(ValueError, match="slices"):
-        fused_shadow._launch(u, px, scal_f, 8, lc=8, ns=3, npl=1, egid=1,
-                             phong=True, atten_kind="sqr", slices=slices)

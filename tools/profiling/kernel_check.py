@@ -1,28 +1,27 @@
-"""Compiler report, split sweeps and A/B device times for the port's CUDA
+"""Compiler report and A/B device and frame times for the port's CUDA
 kernels on a GPU.
 
-    python3 tools/profiling/kernel_check.py [--ptxas] [--sweep]
+    python3 tools/profiling/kernel_check.py [--ptxas] [--frames N]
         [--tree DIR] [--seed 0]
 
 * ``--ptxas`` compiles every ``c_raytracer_tpu_torch/csrc/*.cu`` with the
   port's nvcc flags plus ``-Xptxas -v`` (into the gitignored ``_build/``)
   and prints each kernel's registers, stack frame and spills.
-* ``--sweep`` holds kernel 3 (the cluster visit order) bit-equal to its
-  plain version on the first round of the mesh stand-in's middle 2048-ray
-  tile (K = 8,556) under other splits (warps per block × blocks per
-  cluster; V = 16 and V = 64) and kernel 2 (the fused soft-shadow chunk)
-  within chip_smoke's tolerance under other sample splits (warps per
-  block), on the first chunk of the dense stand-in's first and second
-  rounds and on that chunk with no live pixel, and prints each one's
-  device time.
 * Always: one JSON line of the device times (torch.profiler, as
-  chip_smoke.py phase 10) of kernels 2 and 3 at those shapes under the
-  wrapper's own choice, for the port in ``--tree`` (a checkout's root,
-  default this one).  Run it on two checkouts in turns (parent, change,
-  change, parent) to compare two designs on one card.
+  chip_smoke.py phase 10) of kernel 3 (the cluster visit order) on the
+  first round of the mesh stand-in's middle 2048-ray tile (K = 8,556,
+  V = 16) and on random rays at V = 64 with ``count_max_dist``, and of
+  kernel 2 (the fused soft-shadow chunk) on the first chunk of the dense
+  stand-in's first and second rounds, for the port in ``--tree`` (a
+  checkout's root, default this one).
+* ``--frames N`` adds to that line the frame seconds of both main paths
+  (the dense stand-in at 1024x1024, the mesh stand-in at 512x512, under
+  RenderConfig(); one warm-up frame, then N timed frames, as chip_smoke.py
+  phases 6 and 9), with each path's rays per pixel and peak device memory.
 
-Needs a CUDA device; imports the port and chip_smoke.py's helpers only
-(never JAX).
+Run it on two checkouts in turns (parent, change, change, parent) to
+compare two designs on one card.  Needs a CUDA device; imports the port
+and chip_smoke.py's helpers only (never JAX).
 """
 
 from __future__ import annotations
@@ -78,29 +77,29 @@ def ptxas_report(native) -> None:
                 print(f"ptxas {src} {name}: {line.split(':', 1)[-1].strip()}")
 
 
-def visit_equal(cs, got, want, what: str) -> None:
-    ok = want[1] < cs.pallas_visit.FLT_MAX
-    cs.check(torch.equal(got[1] < cs.pallas_visit.FLT_MAX, ok)
-             and torch.equal(got[2], want[2])
-             and torch.equal(got[0][ok], want[0][ok])
-             and torch.equal(got[1][ok], want[1][ok]),
-             f"visit order bit-equal under {what}")
-
-
-def fused_close(cs, got, want, what: str) -> float:
-    """chip_smoke's rule: >= 0.9999 of the pixel-channels within rtol 1e-4
-    (atol 1e-6·max).  Returns the fraction."""
-    tol = 1e-4 * want.abs() + 1e-6 * want.abs().max()
-    frac = ((got - want).abs() <= tol).float().mean().item()
-    cs.check(bool(torch.isfinite(got).all()) and frac >= 0.9999,
-             f"fused chunk {what}: {frac:.6f} of channels within tol")
-    return frac
+def frame_times(cs, dev, n: int, seed: int) -> dict:
+    """Frame seconds, rays per pixel and peak MiB of both main paths."""
+    out = {}
+    for name, path, res, reorder in (("dense", cs.SCENE, 1024, False),
+                                     ("mesh", cs.MESH_SCENE, cs.MESH_RES,
+                                      True)):
+        sc = cs.load_scene(os.path.join(ROOT, path))
+        if reorder:
+            sc = cs.reorder_scene(sc)
+        render = cs.make_renderer(sc.static, cs.RenderConfig(), res, res,
+                                  device=dev, with_stats=True)
+        _, _, st, secs, _, peak = cs.time_frames(
+            render, sc.params, cs.rng.PhiloxSampler(seed, dev), dev, {}, n)
+        rays = st["main_rays"] + st["shadow_rays"] + st["gi_rays"]
+        out[name] = {"frame_s": secs, "rays_per_px": rays / res ** 2,
+                     "peak_mib": peak / 2 ** 20}
+    return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--frames", type=int, default=0)
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -117,6 +116,9 @@ def main() -> None:
         ptxas_report(_native)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    out = {"tree": args.tree, "device": torch.cuda.get_device_name(0)}
+    if args.frames:    # first, so that the peak holds the frames alone
+        out["frames"] = frame_times(cs, dev, args.frames, args.seed)
     pv, fs = cs.pallas_visit, cs.fused_shadow
 
     # kernel 3: the middle tile's first round, and random rays at V = 64
@@ -141,42 +143,6 @@ def main() -> None:
     sc = cs.load_scene(os.path.join(ROOT, cs.SCENE))
     chunks = cs.capture_round_chunks(sc.static, sc.params, dev)[:2]
 
-    if args.sweep:
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        plans = [(16, w, c) for w in (4, 8, 16) for c in (1, 2, 4, 8)]
-        plans += [(64, w, c) for w in (2, 4) for c in (1, 2, 4, 8)]
-        for V, w, c in plans:
-            split = pv.visit_split(cs.MESH_TILE, K, V, n_sm, warps=w,
-                                   cluster=c)
-            visit_equal(cs, pv.visit_order(o, d, lo, hi, V, split=split),
-                        pv.visit_order_reference(o, d, lo, hi, V), split)
-            ms = cs.device_ms(lambda: pv.visit_order(o, d, lo, hi, V,
-                                                     split=split))
-            print(f"sweep visit order R={cs.MESH_TILE} K={K} V={V} "
-                  f"warps={w} cluster={c} blocks={split.groups * c} "
-                  f"smem={split.smem}: bit-equal, device ms {ms:.6f}",
-                  flush=True)
-        u, px, scal_f, n_valid, kw = chunks[0]
-        dead = px.clone()
-        dead[16] = 0.0
-        for what, (u, px, scal_f, n_valid, kw) in (
-                ("round 1", chunks[0]), ("round 2", chunks[1]),
-                ("no live pixel", (u, dead, scal_f, n_valid, kw))):
-            want = fs.fused_chunk_reference(u, px, scal_f, n_valid, **kw)
-            for s in (1, 2, 4, 8, 16):
-                def run(s=s):
-                    return fs._launch(u, px, scal_f, n_valid, slices=s, **kw)
-                got = run()
-                if what == "no live pixel":
-                    cs.check(not got.any(), f"dead chunk, slices={s}: zeros")
-                    frac = 1.0
-                else:
-                    frac = fused_close(cs, got, want, f"slices={s}")
-                print(f"sweep fused chunk {what} lc={kw['lc']} "
-                      f"P={px.shape[1]} slices={s}: {frac:.6f} of channels "
-                      f"within tol, device ms {cs.device_ms(run):.6f}",
-                      flush=True)
-
     times = {
         "visit_order V=16 mid tile": cs.device_ms(
             lambda: pv.visit_order(o, d, lo, hi, 16)),
@@ -186,8 +152,8 @@ def main() -> None:
     for rnd, (u, px, scal_f, n_valid, kw) in enumerate(chunks, 1):
         times[f"fused_shadow_chunk round {rnd}"] = cs.device_ms(
             lambda: fs.fused_chunk(u, px, scal_f, n_valid, **kw))
-    print(json.dumps({"tree": args.tree, "device_ms": times,
-                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    out["device_ms"] = times
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":
