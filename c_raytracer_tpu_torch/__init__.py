@@ -9,12 +9,13 @@ PyTorch version beside it, which is what runs for tensors on the CPU.
 
 This package imports ``torch`` and ``numpy`` and never ``jax``.
 
-Slices ported so far, forward only: the dense opaque render path (spheres
-and planes, chain integrator, ambient GI) and the opaque mesh path
-(triangles, dense or through the Morton-cluster sweep with the visit-order
-kernel, shared-origin or per-ray soft shadows, sphere and triangle
-emitters).  Everything else raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+Slices ported so far, forward and backward (gradients with respect to
+every ``SceneParams`` leaf, each round and light chunk rematerialised): the
+dense opaque render path (spheres and planes, chain integrator, ambient GI)
+and the opaque mesh path (triangles, dense or through the Morton-cluster
+sweep with the visit-order kernel, shared-origin or per-ray soft shadows,
+sphere and triangle emitters).  Everything else raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
 __version__ = "0.1.0"

@@ -41,6 +41,10 @@ class Intersector:
     # the shadow sweep's own cluster set when its cluster size differs from
     # the main one (bvh_shadow_cluster); None -> the main set
     shadow_clusters: traverse.ClusterSet | None = None
+    # the frame's occlusion results kept for the backward's recompute, by
+    # sample path (core/remat.py); None when nothing is rematerialised
+    saved_occlusion: dict | None = dataclasses.field(default=None,
+                                                     compare=False)
 
     @property
     def _shadow_cs(self):
@@ -226,8 +230,10 @@ class Intersector:
         return (blocked2.permute(1, 2, 0),
                 (tint_out[..., 0], tint_out[..., 1], tint_out[..., 2]), 0)
 
+    @torch.no_grad()
     def emitter_bounds(self, egid: int):
-        """(lo, hi) AABB of emitter primitive ``egid``."""
+        """(lo, hi) AABB of emitter primitive ``egid``; selection only, so
+        without gradient (the JAX package stops it here)."""
         ds = self.ds
         ns = ds.sph_center.shape[0]
         if egid < ns:

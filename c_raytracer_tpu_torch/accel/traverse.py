@@ -26,7 +26,15 @@ order with ties to the lowest index (``torch.topk`` promises no tie
 order).  The JAX ``lax.cond`` that skips dead visit steps becomes, with
 ``dead_skip``, one read of the batch's longest live list per sweep — not a
 host sync per visit; without it every visit runs, as the JAX opaque auto
-does.  Forward only: the port has no gradients yet (ROADMAP: gradients).
+does.
+
+Gradients: selection is cut from the graph where the JAX package stops it
+(the cluster AABBs and bounding spheres, the rays of every visit order,
+the shared-origin capsule and shortlist origins), while the hit distances
+of ``_mt_block`` and the winner's normal gather stay differentiable, into
+the gathered ``blk`` rows and from there, through ``pack_clusters``, into
+the triangle vertices.  The shadow sweeps return masks only; shading runs
+them without autograd (render/shading.py).
 
 Not ported yet, and refused where they would be taken (accel/intersect.py):
 ``_visit_order_super``, ``pack_clusters_sharded``,
@@ -101,24 +109,28 @@ def _pack_from_arrays(v0, e1, e2, n, eps, valid, kt, transp, C: int):
     flat = torch.cat(rows, dim=1)                       # (K*C, F)
     blk = flat.reshape(K, C, flat.shape[1]).transpose(1, 2).contiguous()
 
-    # per-triangle bounding spheres for shortlist scoring (selection only)
-    v1, v2 = v0 + e1, v0 + e2
-    cen = (v0 + v1 + v2) * float(np.float32(1.0 / 3.0))
-    r2 = torch.maximum(torch.maximum(_sum3((v0 - cen) ** 2),
-                                     _sum3((v1 - cen) ** 2)),
-                       _sum3((v2 - cen) ** 2))
-    rad = torch.where(valid, v3m.sqrt(r2) + eps, -1.0)
-    bound = torch.cat([cen, rad[:, None]], -1).reshape(K, C, 4)
+    # selection only, without gradient (stop_gradient in the JAX package)
+    with torch.no_grad():
+        # per-triangle bounding spheres for shortlist scoring
+        v1, v2 = v0 + e1, v0 + e2
+        cen = (v0 + v1 + v2) * float(np.float32(1.0 / 3.0))
+        r2 = torch.maximum(torch.maximum(_sum3((v0 - cen) ** 2),
+                                         _sum3((v1 - cen) ** 2)),
+                           _sum3((v2 - cen) ** 2))
+        rad = torch.where(valid, v3m.sqrt(r2) + eps, -1.0)
+        bound = torch.cat([cen, rad[:, None]], -1).reshape(K, C, 4)
 
-    # AABB refit: per-triangle min/max over its 3 vertices, padding masked,
-    # reduced per cluster, inflated by the cluster's largest epsilon (the
-    # reference inflates node slabs by node->epsilon, accel.c:120-156)
-    verts = torch.stack([v0, v1, v2], dim=1)            # (K*C, 3, 3)
-    vm = valid[:, None]
-    vmin = torch.where(vm, verts.amin(1), FLT_MAX).reshape(K, C, 3).amin(1)
-    vmax = torch.where(vm, verts.amax(1), -FLT_MAX).reshape(K, C, 3).amax(1)
-    ceps = torch.where(valid, eps, 0.0).reshape(K, C).amax(1)[:, None]
-    return blk, vmin - ceps, vmax + ceps, flat, bound
+        # AABB refit: per-triangle min/max over its 3 vertices, padding
+        # masked, reduced per cluster, inflated by the cluster's largest
+        # epsilon (the reference inflates node slabs by node->epsilon,
+        # accel.c:120-156)
+        verts = torch.stack([v0, v1, v2], dim=1)        # (K*C, 3, 3)
+        vm = valid[:, None]
+        vmin = torch.where(vm, verts.amin(1), FLT_MAX).reshape(K, C, 3)
+        vmax = torch.where(vm, verts.amax(1), -FLT_MAX).reshape(K, C, 3)
+        ceps = torch.where(valid, eps, 0.0).reshape(K, C).amax(1)[:, None]
+        lo, hi = vmin.amin(1) - ceps, vmax.amax(1) + ceps
+    return blk, lo, hi, flat, bound
 
 
 def pack_clusters(ds, static, cluster_size: int) -> ClusterSet:
@@ -164,9 +176,11 @@ def _visit_order(cs: ClusterSet, o, d, visits: int, count_max_dist=None):
     both give the same lists and the exact spill."""
     K = cs.lo.shape[0]
     V = max(1, min(visits, K))   # visits=0 would make the sweep empty
+    # selection only: kernel 3 and its plain version never build a graph
+    cmd = None if count_max_dist is None else count_max_dist.detach()
     cids, entry, spill = pallas_visit.visit_order(
-        o.contiguous(), d.contiguous(), cs.lo, cs.hi, V,
-        None if count_max_dist is None else count_max_dist.contiguous())
+        o.detach().contiguous(), d.detach().contiguous(), cs.lo.detach(),
+        cs.hi.detach(), V, None if cmd is None else cmd.contiguous())
     return cids.long(), entry < FLT_MAX, entry, spill
 
 
@@ -307,6 +321,7 @@ def shadow_visit_order(cs: ClusterSet, origin, hull_lo, hull_hi,
     cluster is a candidate iff its bounding sphere comes within s·erad of
     the origin→emitter-centre chord at fraction s (a capsule test), nearest
     first by distance from the origin.  Returns (cids (P, V), ok (P, V))."""
+    origin = origin.detach()
     K = cs.lo.shape[0]
     V = max(1, min(visits, K))
     center = 0.5 * (cs.lo + cs.hi)                          # (K, 3)
@@ -372,6 +387,7 @@ def shadow_shortlist(cs: ClusterSet, origin, cids, ok, ecenter, erad,
     origin: (P, 3); cids/ok: (P, V) from shadow_visit_order; ecenter (3,),
     erad ().  Returns (blk (P, F, K) gathered triangle rows, gid (P, K)
     global prim ids, lane_ok (P, K))."""
+    origin = origin.detach()
     C = cs.blk.shape[2]
     P, V = cids.shape
     K = min(k_short, V * C)

@@ -1,1 +1,2 @@
-from c_raytracer_tpu_torch.core import cmath, noise, rng, v3  # noqa: F401
+from c_raytracer_tpu_torch.core import (  # noqa: F401
+    cmath, noise, remat, rng, v3)

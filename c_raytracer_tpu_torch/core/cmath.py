@@ -1,4 +1,4 @@
-"""C99 float-semantics helpers (forward), as in ``c_raytracer_tpu.core.cmath``.
+"""C99 float-semantics helpers, as in ``c_raytracer_tpu.core.cmath``.
 
 * ``powf(negative, integral)`` is well-defined in C (render.c:224 uses
   ``powf(specular_mul, shininess)`` with possibly-negative bases) —
@@ -41,10 +41,41 @@ def fmaxf_zero(x):
     return torch.where(x > 0, x, 0.0)
 
 
+class _Fmax0Powf(torch.autograd.Function):
+    """``fmaxf_zero(c_powf(x, s))`` on same-shaped operands, with the
+    closed-form VJP of the JAX package's ``_fmax0_powf_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        p = fmaxf_zero(c_powf(x, s))
+        ctx.save_for_backward(x, s, p)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        # On active lanes (p > 0, x != 0) p = ±|x|^s is positive, so
+        # d/dx = s·p/x and d/ds = p·log|x|.  Inactive lanes (clamped to 0,
+        # NaN, or x == 0, 0^neg = inf included) carry zero gradient; the
+        # cotangent sits inside the select, so a NaN g there cannot leak.
+        x, s, p = ctx.saved_tensors
+        active = (p > 0) & (x != 0)
+        safe_x = torch.where(x == 0, 1.0, x)
+        dx = torch.where(active, s * p / safe_x * g, 0.0)
+        ds = torch.where(active, p * torch.log(torch.abs(safe_x)) * g, 0.0)
+        return dx, ds
+
+
 def fmax0_powf(base, exponent):
     """``fmaxf(0.f, powf(base, exponent))`` — the specular clamp-power of
-    render.c:205,224."""
-    return fmaxf_zero(c_powf(base, exponent))
+    render.c:205,224 — with a closed-form VJP: autograd through c_powf's
+    select cascade would meet ``|x|^(s-1)`` as 0·inf on some lanes.  The
+    operands are broadcast first, so the expand's backward sums the
+    cotangent back to each operand's shape."""
+    base = torch.as_tensor(base, dtype=torch.float32)
+    exponent = torch.as_tensor(exponent, dtype=torch.float32,
+                               device=base.device)
+    shape = torch.broadcast_shapes(base.shape, exponent.shape)
+    return _Fmax0Powf.apply(base.expand(shape), exponent.expand(shape))
 
 
 def signbit(x):

@@ -16,26 +16,20 @@ import torch
 
 from c_raytracer_tpu_torch.accel.intersect import (AUTO_THRESHOLD,
                                                    make_intersector)
-from c_raytracer_tpu_torch.core import rng
+from c_raytracer_tpu_torch.core import remat, rng
 from c_raytracer_tpu_torch.geometry import primitives as G
 from c_raytracer_tpu_torch.render.camera import primary_rays
 from c_raytracer_tpu_torch.render.config import RenderConfig
 from c_raytracer_tpu_torch.render.integrator import render_wavefront
 from c_raytracer_tpu_torch.scene import types as T
-from c_raytracer_tpu_torch.scene.convert import params_to_torch
+from c_raytracer_tpu_torch.scene.convert import named_leaves, params_to_torch
 
 DENSE_TILE = 65536   # the JAX package's auto tiles: dense scenes,
 CLUSTER_TILE = 2048  # and cluster scenes (api.py:35-42 there)
 
 
 def _requires_grad(params: T.SceneParams) -> bool:
-    leaves = [getattr(params, f.name) for f in dataclasses.fields(params)]
-    leaves += [getattr(params.materials, f.name)
-               for f in dataclasses.fields(params.materials)]
-    leaves += [getattr(params.camera, f.name)
-               for f in dataclasses.fields(params.camera)]
-    return any(isinstance(x, torch.Tensor) and x.requires_grad
-               for x in leaves)
+    return any(x.requires_grad for _, x in named_leaves(params))
 
 
 def make_renderer(static: T.SceneStatic, cfg: RenderConfig, resx: int,
@@ -49,7 +43,15 @@ def make_renderer(static: T.SceneStatic, cfg: RenderConfig, resx: int,
     tiles; tile ``i`` draws its samples under the path ``(i, round,
     emitter, chunk)``.  The intersector, with its cluster packs, is built
     once per frame and serves every tile.  Stats sum over tiles; the
-    ``*_spill_max`` guards take the max."""
+    ``*_spill_max`` guards take the max.
+
+    The frame is differentiable with respect to every ``SceneParams`` leaf
+    that requires grad (``params_to_torch`` keeps the caller's leaves):
+    the image and z then carry ``grad_fn`` and ``backward()`` fills the
+    leaves' ``.grad``.  With ``cfg.remat`` the backward recomputes each
+    round and light chunk, keeping only the occlusion masks
+    (core/remat.py); without a leaf that requires grad the frame runs
+    under ``torch.no_grad``."""
     device = torch.device(device)
     n_pixels = resx * resy
     tile = cfg.tile_size
@@ -61,14 +63,15 @@ def make_renderer(static: T.SceneStatic, cfg: RenderConfig, resx: int,
     n_tiles = -(-n_pixels // tile)
     pad = n_tiles * tile - n_pixels
 
+    remat.check_names(cfg.remat_names)
+
     def render_fn(params, sampler):
         params = params_to_torch(params, device)
-        if _requires_grad(params):
-            raise NotImplementedError(
-                "gradients through the frame are not ported yet (ROADMAP: "
-                "gradients through the main path)")
-        with torch.no_grad():
+        grad = torch.is_grad_enabled() and _requires_grad(params)
+        with torch.set_grad_enabled(grad):
             ix = make_intersector(G.device_scene(params, static), static, cfg)
+            if grad and cfg.remat:
+                ix = dataclasses.replace(ix, saved_occlusion={})
             o, d = primary_rays(params.camera, resx, resy)
             if pad:
                 o = torch.cat([o, o.new_zeros((pad, 3))])

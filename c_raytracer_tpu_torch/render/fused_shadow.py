@@ -142,7 +142,9 @@ def _launch(u, px, scal_f, n_valid: int, *, lc, ns, npl, egid, phong,
 
 class _FusedChunk(torch.autograd.Function):
     """Kernel forward; backward differentiates the plain version at the
-    same u, px and scal_f (a backward kernel is later work)."""
+    same u, px and scal_f, on their device (a backward kernel is later
+    work).  It keeps those three operands and nothing else: the backward
+    recomputes the occlusion and shading it needs."""
 
     @staticmethod
     def forward(ctx, u, px, scal_f, n_valid, statics):

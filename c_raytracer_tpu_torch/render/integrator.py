@@ -12,6 +12,11 @@ The intersector (and the cluster packs of a mesh scene) depends only on
 the scene parameters, so ``make_renderer`` builds it once per frame and
 hands it to every tile.
 
+Gradients: each round's trace + shade is a rematerialised region
+(core/remat.py), so across rounds a tile keeps only each round's inputs;
+the stats, the ``live.any()`` break and the z update stay outside it, and
+a recompute counts nothing twice.
+
 Not ported yet, and refused with ``NotImplementedError``: the stack
 integrator (transparent materials, refraction) and path-traced GI.
 """
@@ -20,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from c_raytracer_tpu_torch.core import remat
 from c_raytracer_tpu_torch.core import v3 as v3m
 from c_raytracer_tpu_torch.core.v3 import V3
 from c_raytracer_tpu_torch.render import shading
@@ -105,8 +111,9 @@ def _render_chain(ix, static: T.SceneStatic, cfg: RenderConfig, key, o: V3,
             break  # every chain has died: the remaining rounds do no work
         remaining = cfg.max_bounces - round_i  # same depth on every lane
         is_primary = remaining == cfg.max_bounces
-        r = _round_shade(ix, static, cfg, key.fold_in(round_i), ro, rd, rkr,
-                         remaining, live)
+        r = remat.checkpoint(cfg, _round_shade, ix, static, cfg,
+                             key.fold_in(round_i), ro, rd, rkr, remaining,
+                             live)
         color = color + r["contrib"]
         if is_primary:
             z = torch.where(live, r["z_val"], z)
@@ -121,7 +128,19 @@ def _render_chain(ix, static: T.SceneStatic, cfg: RenderConfig, key, o: V3,
         stats[5] = torch.maximum(stats[5],
                                  r["shadow_spill"].to(torch.float64))
         stats[6] = torch.maximum(stats[6], r["visit_spill"].to(torch.float64))
-        ro, rd, rkr, live = r["hit_pt"], r["refl_d"], r["refl_kr"], live2
+        ro, rd, rkr = r["hit_pt"], r["refl_d"], r["refl_kr"]
+        if torch.is_grad_enabled():
+            # under autograd a chain that died carries the zero ray of the
+            # tile's padding from here on.  Its own ray goes on bouncing
+            # unmasked, its direction drifting off unit length round by
+            # round (0.33-1.02 after 10 rounds on the dense stand-in at
+            # 1024²); its values, masked in the forward, still meet zero
+            # cotangents in the backward, and there 0·inf made that
+            # frame's gradients NaN, as the JAX package's are.  Dead lanes
+            # add nothing to the frame or the stats either way, so a frame
+            # without gradients keeps the rays and spares the selects.
+            ro, rd, rkr = (v3m.where(live2, v, 0.0) for v in (ro, rd, rkr))
+        live = live2
     return _finish(color, z, stats, with_stats)
 
 

@@ -3,11 +3,10 @@ emission, soft-shadow direct lighting from sphere and triangle emitters,
 Phong/Blinn specular and attenuation (render.c:158-229, 291-314).
 
 The reference's idiosyncrasies are kept (SURVEY.md §3.5): direct light only
-on outside hits, blocked samples contribute nothing, transparent blockers
-tint the light by their kt, light attenuation divides by (offset + |d|) or
-(offset + |d|²) but segment attenuation by (offset + t) or (offset + t)²,
-specular through C powf/fmaxf semantics, and the sphere-light direction
-flip of object.c:293-304.
+on outside hits, blocked samples contribute nothing, light attenuation
+divides by (offset + |d|) or (offset + |d|²) but segment attenuation by
+(offset + t) or (offset + t)², specular through C powf/fmaxf semantics,
+and the sphere-light direction flip of object.c:293-304.
 
 Light-sample batches are (lc, P) with the sample axis leading.  Per-lane
 material values are gathered from the tiny material tables by index
@@ -21,6 +20,11 @@ intersector's shared-origin sweep (``shadow_query``, cluster scenes) or
 from one ``any_tint`` query per chunk, then shading.  Each chunk's uniforms
 are drawn once, under the path ``(tile, round, emitter, chunk)``, and serve
 both the occlusion and the shading.
+
+Gradients: each light chunk is a rematerialised region (core/remat.py), its
+draw inside it, so the backward draws again instead of keeping (lc, P)
+samples.  The occlusion sweeps run without autograd and their masks are the
+frame's saved residual: the recompute reads them and never sweeps again.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from c_raytracer_tpu_torch.core import cmath
+from c_raytracer_tpu_torch.core import cmath, remat
 from c_raytracer_tpu_torch.core import v3 as v3m
 from c_raytracer_tpu_torch.core.v3 import PI, V3
 from c_raytracer_tpu_torch.render.config import (
@@ -96,6 +100,23 @@ def _triangle_light_point(key, v0: V3, e1: V3, e2: V3, hit_pt: V3, lc):
     return v0 + e1 * p + e2 * q
 
 
+def _light_dirs(ds, static, ckey, egid: int, hit_pt: V3, lc):
+    """One chunk's sample directions toward emitter ``egid``, drawn under
+    ``ckey``: (ldir V3 (lc, P), ldist (lc, P))."""
+    if egid < static.n_spheres:
+        lp = _sphere_light_point(ckey, v3m.splat(ds.sph_center[egid]),
+                                 ds.sph_radius[egid], hit_pt, lc)
+    else:
+        ti = egid - static.n_spheres
+        lp = _triangle_light_point(
+            ckey, v3m.splat(ds.tri_v0[ti]), v3m.splat(ds.tri_e1[ti]),
+            v3m.splat(ds.tri_e2[ti]), hit_pt, lc)
+    lvec = lp - hit_pt.map(lambda a: a[None])
+    ldist = v3m.safe_mag(lvec)
+    ldir = lvec * (1.0 / torch.where(ldist == 0.0, 1.0, ldist))
+    return ldir, ldist
+
+
 def fused_eligible(static: T.SceneStatic, egid: int) -> bool:
     """Whether the fused chunk serves this emitter: a dense opaque scene
     (no triangles, no transparent material) and a sphere emitter — the
@@ -105,13 +126,19 @@ def fused_eligible(static: T.SceneStatic, egid: int) -> bool:
             and egid < static.n_spheres)
 
 
+def _fused_chunk(ckey, n_valid, statics, px, scal_f):
+    """One chunk of the fused route: its draw and kernel 2 -> (3, P)."""
+    # imported here: fused_shadow imports this module for its plain version
+    from c_raytracer_tpu_torch.render import fused_shadow
+
+    u = ckey.uniform((2, statics["lc"], px.shape[1]))
+    return fused_shadow.fused_chunk(u, px, scal_f, n_valid, **statics)
+
+
 def _fused_emitter(ds, static, cfg, ekey, egid, num_lights, lc, nchunks,
                    hit_pt: V3, normal: V3, ray_d: V3, tex_col: V3, ksv: V3,
                    shin, okf) -> V3:
     """One emitter's direct light through the fused chunk (kernel 2)."""
-    # imported here: fused_shadow imports this module for its plain version
-    from c_raytracer_tpu_torch.render import fused_shadow
-
     dev = hit_pt.x.device
     P = hit_pt.x.shape[0]
     e_mat = static.material_index[egid]
@@ -133,22 +160,65 @@ def _fused_emitter(ds, static, cfg, ekey, egid, num_lights, lc, nchunks,
                    ds.sph_eps[:, None]], 1).reshape(-1),
         torch.cat([ds.pln_n, ds.pln_d[:, None],
                    ds.pln_eps[:, None]], 1).reshape(-1)])
+    statics = dict(lc=lc, ns=static.n_spheres, npl=static.n_planes,
+                   egid=egid, phong=cfg.reflection_model == REFLECTION_PHONG,
+                   atten_kind=cfg.light_attenuation)
     total = v3m.full((P,), 0.0, device=dev)
     for chunk_i in range(nchunks):
-        u = ekey.fold_in(chunk_i).uniform((2, lc, P))
-        out = fused_shadow.fused_chunk(
-            u, px, scal_f, num_lights - chunk_i * lc, lc=lc,
-            ns=static.n_spheres, npl=static.n_planes, egid=egid,
-            phong=cfg.reflection_model == REFLECTION_PHONG,
-            atten_kind=cfg.light_attenuation)
+        out = remat.checkpoint(cfg, _fused_chunk, ekey.fold_in(chunk_i),
+                               num_lights - chunk_i * lc, statics, px, scal_f)
         total = total + V3(out[0], out[1], out[2])
     return total
+
+
+def _shade_chunk(ix, static, cfg, ckey, egid, real, intensity: V3,
+                 hit_pt: V3, nrm_b: V3, rd_b: V3, tex_col: V3, ksv: V3,
+                 shin, blocked, drawn):
+    """One chunk of the non-fused route: its samples' occlusion and
+    shading.  ``real`` (lc, P) marks the sample lanes that count (shaded
+    pixels, samples below num_lights); ``nrm_b``, ``rd_b`` are the normal
+    and ray direction broadcast to (1, P); ``blocked`` is the chunk's
+    occlusion mask from the shared sweep, or None for a per-chunk
+    ``any_tint`` query; ``drawn`` the chunk's (ldir, ldist) when the caller
+    drew them, else None and the draw is made here.  Returns (V3 (P,) sum
+    over the chunk's samples, the per-ray sweep's spill or None)."""
+    if drawn is None:
+        drawn = _light_dirs(ix.ds, static, ckey, egid, hit_pt, real.shape[0])
+    ldir, ldist = drawn
+    a = v3m.dot(ldir, nrm_b)
+    spill = None
+    if blocked is None:
+        def sweep():
+            # the per_ray sweep's truncation guard, over real sample lanes
+            # of shaded pixels only; opaque scenes carry no tint
+            b, _, qspill = ix.any_tint(hit_pt.map(lambda x: x[None]), ldir,
+                                       ldist, egid, with_spill=True)
+            return b, torch.where(real, qspill, 0).max()
+        blocked, spill = remat.saved_occlusion(ix.saved_occlusion,
+                                               ckey.path, sweep)
+
+    incoming = attenuate_light(cfg, intensity, ldist)
+    if cfg.reflection_model == REFLECTION_PHONG:
+        reflected = nrm_b * (2.0 * a) - ldir
+        spec_mul = -v3m.dot(reflected, rd_b)
+    else:  # Blinn half-vector variant (render.c:215-220)
+        hv = rd_b - ldir
+        hm = v3m.safe_mag(hv)
+        reflected = hv * (1.0 / torch.where(hm == 0.0, 1.0, hm))
+        spec_mul = -v3m.dot(nrm_b, reflected)
+    cos_d = cmath.fmaxf_zero(a)
+    spec_p = cmath.fmax0_powf(spec_mul, shin[None])
+    diffuse = tex_col.map(lambda x: x[None]) * incoming * cos_d
+    spec = ksv.map(lambda x: x[None]) * incoming * spec_p
+    contrib = v3m.where(real & ~blocked, diffuse + spec, 0.0)
+    return contrib.map(lambda x: x.sum(0)), spill
 
 
 def direct_light(ix, static: T.SceneStatic, cfg: RenderConfig, key,
                  hit_pt: V3, normal: V3, ray_d: V3, gid, mat, is_outside,
                  tex_col: V3, active):
-    """Soft-shadow direct lighting over all emitters (render.c:170-229).
+    """Soft-shadow direct lighting over all emitters (render.c:170-229) of
+    an opaque scene.
 
     Per emitter: ke/num_lights intensity per sample, num_lights samples in
     chunks of ``cfg.light_chunk``, each chunk's (lc, P) uniforms drawn from
@@ -162,7 +232,6 @@ def direct_light(ix, static: T.SceneStatic, cfg: RenderConfig, key,
     P = hit_pt.x.shape[0]
     total = v3m.full((P,), 0.0, device=dev)
     spill_max = torch.zeros((), dtype=torch.int32, device=dev)
-    phong = cfg.reflection_model == REFLECTION_PHONG
     ksv = v3m.rows(ds.materials.ks, mat)
     shin = ds.materials.shininess[mat]
 
@@ -184,73 +253,35 @@ def direct_light(ix, static: T.SceneStatic, cfg: RenderConfig, key,
         inv_nl = float(np.float32(1.0) / np.float32(num_lights))
         intensity = v3m.splat(ds.materials.ke[e_mat] * inv_nl)
 
-        def light_dirs(chunk_i, _egid=egid, _ekey=ekey, _lc=lc):
-            """The chunk's sample directions: (ldir V3 (lc, P), ldist)."""
-            ckey = _ekey.fold_in(chunk_i)
-            if _egid < static.n_spheres:
-                lp = _sphere_light_point(
-                    ckey, v3m.splat(ds.sph_center[_egid]),
-                    ds.sph_radius[_egid], hit_pt, _lc)
-            else:
-                ti = _egid - static.n_spheres
-                lp = _triangle_light_point(
-                    ckey, v3m.splat(ds.tri_v0[ti]), v3m.splat(ds.tri_e1[ti]),
-                    v3m.splat(ds.tri_e2[ti]), hit_pt, _lc)
-            lvec = lp - hit_pt.map(lambda a: a[None])
-            ldist = v3m.safe_mag(lvec)
-            ldir = lvec * (1.0 / torch.where(ldist == 0.0, 1.0, ldist))
-            return ldir, ldist
-
-        shadow_all = None
+        blocked_all = dirs = None
         if ix.use_shared_shadows:
             # shared-origin sweep: every chunk's occlusion in one pass with
-            # per-pixel visit lists; the draws are kept for the shading
-            dirs = [light_dirs(c) for c in range(nchunks)]
-            light_dirs = dirs.__getitem__
-            elo, ehi = ix.emitter_bounds(egid)
-            blocked_all, tint_all, sp = ix.shadow_query(
-                hit_pt, elo, ehi, light_dirs, egid, nchunks, lc)
-            shadow_all = (blocked_all, tint_all)
-            spill_max = torch.clamp(spill_max, min=sp)
+            # per-pixel visit lists; the draws, made once here, serve the
+            # sweep and the shading, and the recompute draws them again
+            dirs = [_light_dirs(ds, static, ekey.fold_in(c), egid, hit_pt,
+                                lc) for c in range(nchunks)]
+
+            def sweep(_egid=egid, _dirs=dirs, _nc=nchunks, _lc=lc):
+                elo, ehi = ix.emitter_bounds(_egid)
+                return ix.shadow_query(hit_pt, elo, ehi, _dirs.__getitem__,
+                                       _egid, _nc, _lc)[0]
+            blocked_all = remat.saved_occlusion(ix.saved_occlusion,
+                                                ekey.path, sweep)
 
         lane_idx = torch.arange(lc, device=dev)[:, None]
         nrm_b = normal.map(lambda a: a[None])
         rd_b = ray_d.map(lambda a: a[None])
         for chunk_i in range(nchunks):
-            ldir, ldist = light_dirs(chunk_i)
-            a = v3m.dot(ldir, nrm_b)
             # the padded tail of the last chunk never contributes
             real = shaded[None] & (chunk_i * lc + lane_idx < num_lights)
-            if shadow_all is None:
-                blocked, tint, qspill = ix.any_tint(
-                    hit_pt.map(lambda x: x[None]), ldir, ldist, egid,
-                    with_spill=True)
-                # the per_ray sweep's truncation guard, over real sample
-                # lanes of shaded pixels only
-                spill_max = torch.maximum(
-                    spill_max, torch.where(real, qspill, 0).max())
-            else:
-                blocked = shadow_all[0][chunk_i]
-                tn = shadow_all[1]
-                # opaque scenes carry no tint (merged into blocked)
-                tint = (V3(tn[0][chunk_i], tn[1][chunk_i], tn[2][chunk_i])
-                        if tn is not None else 1.0)
-
-            incoming = attenuate_light(cfg, intensity * tint, ldist)
-            if phong:
-                reflected = nrm_b * (2.0 * a) - ldir
-                spec_mul = -v3m.dot(reflected, rd_b)
-            else:  # Blinn half-vector variant (render.c:215-220)
-                hv = rd_b - ldir
-                hm = v3m.safe_mag(hv)
-                reflected = hv * (1.0 / torch.where(hm == 0.0, 1.0, hm))
-                spec_mul = -v3m.dot(nrm_b, reflected)
-            cos_d = cmath.fmaxf_zero(a)
-            spec_p = cmath.fmax0_powf(spec_mul, shin[None])
-            diffuse = tex_col.map(lambda x: x[None]) * incoming * cos_d
-            spec = ksv.map(lambda x: x[None]) * incoming * spec_p
-            contrib = v3m.where(real & ~blocked, diffuse + spec, 0.0)
-            total = total + contrib.map(lambda x: x.sum(0))
+            contrib, sp = remat.checkpoint(
+                cfg, _shade_chunk, ix, static, cfg, ekey.fold_in(chunk_i),
+                egid, real, intensity, hit_pt, nrm_b, rd_b, tex_col, ksv,
+                shin, None if dirs is None else blocked_all[chunk_i],
+                None if dirs is None else dirs[chunk_i])
+            total = total + contrib
+            if sp is not None:
+                spill_max = torch.maximum(spill_max, sp)
     return total, spill_max
 
 

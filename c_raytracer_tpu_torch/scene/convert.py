@@ -4,7 +4,10 @@
 names — this package's (NumPy leaves from the loader, or tensors already)
 or the JAX package's (its leaves are host NumPy until jit, see
 ``c_raytracer_tpu/scene/types.py``) — and returns this package's
-``SceneParams`` with every leaf a float32 tensor on ``device``.
+``SceneParams`` with every leaf a float32 tensor on ``device``.  A leaf that
+already is a float32 tensor on ``device`` is returned as it is, so a caller's
+``requires_grad`` leaves stay the leaves that ``backward()`` fills;
+``grads_to_numpy`` reads their ``.grad`` back as host arrays.
 """
 
 from __future__ import annotations
@@ -38,3 +41,32 @@ def params_to_torch(params, device) -> T.SceneParams:
     return T.SceneParams(
         materials=mats, camera=cam,
         **{f: _leaf(getattr(params, f), device) for f in _PARAM_FIELDS})
+
+
+def named_leaves(params) -> list:
+    """(name, leaf) for every leaf of a SceneParams-shaped object, named
+    "sphere_center", ..., "materials.ks", ..., "camera.fov"."""
+    return ([(f, getattr(params, f)) for f in _PARAM_FIELDS]
+            + [(f"materials.{f}", getattr(params.materials, f))
+               for f in _MATERIAL_FIELDS]
+            + [(f"camera.{f}", getattr(params.camera, f))
+               for f in _CAMERA_FIELDS])
+
+
+def _grad(x) -> np.ndarray:
+    g = x.grad if isinstance(x, torch.Tensor) else None
+    if g is None:
+        return np.zeros(np.shape(x), np.float32)
+    return g.detach().cpu().numpy()
+
+
+def grads_to_numpy(params: T.SceneParams) -> T.SceneParams:
+    """The ``.grad`` of every leaf of ``params`` (as ``params_to_torch``
+    returned it) as host NumPy arrays in a ``T.SceneParams``, zeros where
+    a leaf has no grad."""
+    return T.SceneParams(
+        materials=T.Materials(**{f: _grad(getattr(params.materials, f))
+                                 for f in _MATERIAL_FIELDS}),
+        camera=T.Camera(**{f: _grad(getattr(params.camera, f))
+                           for f in _CAMERA_FIELDS}),
+        **{f: _grad(getattr(params, f)) for f in _PARAM_FIELDS})

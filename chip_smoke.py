@@ -14,9 +14,14 @@ at 1024x1024 (phases 3-6: Philox, fused shadow), and the mesh stand-in
 (scenes/meshes_opaque.json, 136,896 triangles in Morton clusters) at
 512x512 (phases 7-9: the cluster visit order).  Phase 10 times every
 kernel on the device at the main paths' shapes and sets each beside its
-bound.  Each phase prints one line or a few; any failed check raises, so
-the script exits non-zero and prints no result.  The last two lines are the
-kernels' JSON summary and the run's result line.
+bound, kernel 2's backward included.  Phases 11-13 take gradients: card
+against CPU grads of every SceneParams leaf on small dense and mesh frames
+(11), then a forward+backward step of each main path, the dense stand-in
+at 1024x1024 (12, with the peak memory of the step without
+rematerialisation) and the mesh stand-in at 512x512 (13).  Each phase
+prints one line or a few; any failed check raises, so the script exits
+non-zero and prints no result.  The last two lines are the kernels' JSON
+summary and the run's result line.
 
 Kernel times: ``device ms`` is the CUDA kernel time that torch.profiler
 records over 50 launches, divided by the launches it recorded (phase 10
@@ -72,6 +77,13 @@ VISIT_OPS_PER_BOX = 25
 FUSED_OPS_PER_SAMPLE = 205
 FUSED_OPS_PER_SPHERE = 30
 FUSED_OPS_PER_PLANE = 25
+# card against CPU grads, each leaf: max |diff| <= GRAD_MAX_RTOL · scale
+# and, for leaves of 1000 entries or more, >= 99.9% of the entries within
+# GRAD_RTOL · scale; scale = the larger max |grad| of the two over the leaf
+# (camera.focal_length, whose exact gradient is 0, at camera.position's)
+GRAD_RTOL = 1e-3
+GRAD_MAX_RTOL = 1e-2
+GRAD_SCALE_OF = {"camera.focal_length": "camera.position"}
 
 
 def check(ok: bool, what: str) -> None:
@@ -314,6 +326,91 @@ def time_frames(render, params, sampler, dev, launch_fns, n=3):
     launches = {k: fn.launches for k, fn in launch_fns.items()}
     st = {k: float(v) for k, v in st.items()}
     return img, z, st, secs, launches, torch.cuda.max_memory_allocated(dev)
+
+
+def grad_params(params, device):
+    """``params_to_torch`` with every leaf requiring grad: (params,
+    [(name, leaf)])."""
+    # imported here: tools/profiling/kernel_check.py loads this file's
+    # helpers against checkouts of the port from before the gradients
+    from c_raytracer_tpu_torch.scene import named_leaves
+
+    p = params_to_torch(params, device)
+    named = named_leaves(p)
+    for _, x in named:
+        x.requires_grad_(True)
+    return p, named
+
+
+def frame_grads(static, params, cfg, resx, resy, device, seed, w, wz):
+    """{leaf name: grad on the CPU} of sum(img·w) + sum(z·wz) for a frame
+    rendered on ``device``."""
+    p, named = grad_params(params, device)
+    img, z = make_renderer(static, cfg, resx, resy, device=device)(
+        p, rng.PhiloxSampler(seed, device))
+    ((img * w.to(device)).sum() + (z * wz.to(device)).sum()).backward()
+    return {n: (x.grad if x.grad is not None else torch.zeros_like(x)).cpu()
+            for n, x in named}
+
+
+def grads_agree(card, cpu, what: str) -> tuple[str, float]:
+    """Card grads against CPU grads, leaf by leaf (GRAD_RTOL,
+    GRAD_MAX_RTOL).  Returns the leaf with the largest max |diff| / scale,
+    and that ratio."""
+    worst = ("", 0.0)
+    for name, b in cpu.items():
+        a = card[name]
+        check(bool(torch.isfinite(a).all()), f"{what} {name}: finite")
+        ref = GRAD_SCALE_OF.get(name, name)
+        scale = max(card[ref].abs().max().item() if card[ref].numel() else 0,
+                    cpu[ref].abs().max().item() if cpu[ref].numel() else 0)
+        if not a.numel():
+            continue
+        diff = (a - b).abs()
+        err = diff.max().item()
+        check(err <= GRAD_MAX_RTOL * scale,
+              f"{what} {name}: max |card - cpu| {err} > {GRAD_MAX_RTOL} x "
+              f"{scale}")
+        if a.numel() >= 1000:
+            frac = (diff <= GRAD_RTOL * scale).float().mean().item()
+            check(frac >= 0.999, f"{what} {name}: {frac:.5f} of entries "
+                                 f"within {GRAD_RTOL} x {scale}")
+        if scale and err / scale > worst[1]:
+            worst = (name, err / scale)
+    return worst
+
+
+def time_fwd_bwd(render, params, device, seed, launch_fns):
+    """One warm-up forward+backward step of mean(img²) over every leaf,
+    then one timed step.  Returns (seconds, forward stats, launches in the
+    timed step, peak bytes, named leaves)."""
+    p, named = grad_params(params, device)
+
+    def step():
+        for _, x in named:
+            x.grad = None
+        img, _, st = render(p, rng.PhiloxSampler(seed, device))
+        img.square().mean().backward()
+        return st
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for fn in launch_fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    st = step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in launch_fns.items()}
+    check(all(n > 0 for n in launches.values()), f"launches {launches}")
+    for name, x in named:
+        check(x.grad is None or bool(torch.isfinite(x.grad).all()),
+              f"fwd+bwd grad {name} finite")
+    check(any(x.grad is not None and bool(x.grad.abs().max() > 0)
+              for _, x in named), "fwd+bwd grads nonzero")
+    return (secs, {k: float(v) for k, v in st.items()}, launches,
+            torch.cuda.max_memory_allocated(device), named)
 
 
 def check_frame(img, z, res, what: str) -> None:
@@ -591,6 +688,19 @@ def main() -> int:
             f"fused chunk {what} lc={ckw['lc']} P={P} ({live} live pixels, "
             f"{samples} live samples)", [device_ms(run), device_ms(run)],
             bound_ms(need, ops), issue_ms=issue_ms(run)))
+    # kernel 2's backward: _FusedChunk.backward (the plain version's
+    # autograd at the same operands, on the card) on the round-1 chunk
+    pxg = px.clone().requires_grad_(True)
+    sfg = scal_f.clone().requires_grad_(True)
+    out2 = fused_shadow.fused_chunk(u, pxg, sfg, n_valid, **kw0)
+    g2 = torch.rand(out2.shape, generator=gen, device=dev)
+    bwd_runs = [device_ms(lambda: torch.autograd.grad(
+        out2, (pxg, sfg), g2, retain_graph=True), 20) for _ in range(2)]
+    phase(10, f"fused chunk round 1 backward (plain version's autograd): "
+              f"device ms {[round(x, 6) for x in bwd_runs]} mean "
+              f"{mean(bwd_runs):.6f}; forward kernel "
+              f"{times['fused_shadow_chunk'][0]['device_ms']:.6f}")
+    del out2, pxg, sfg, g2
     # kernel 3: the mid tile's first round, the 64x32 frame's first and
     # reflection rounds
     for what, (co, cd, clo, chi, cv) in (
@@ -612,6 +722,108 @@ def main() -> int:
             issue_ms=issue_ms(run), split=str(pallas_visit.visit_split(
                 R_, K_, cv, n_sm))))
 
+    # -- phase 11: card grads against CPU grads ---------------------------
+    gen_w = torch.Generator().manual_seed(args.seed)
+    check(cfg.resolved_shadow_mode(False) == "shared"
+          and cfg.resolved_shadow_shortlist(False) > 0,
+          "the mesh frame takes the shared shortlist shadows")
+    worst = {}
+    for what, (gstatic, gparams, gx, gy) in {
+            "dense 64x64": (sc.static, sc.params, 64, 64),
+            "mesh 64x32": (msc.static, msc.params, 64, 32)}.items():
+        w = torch.rand((gy, gx, 3), generator=gen_w)
+        wz = torch.rand((gy, gx), generator=gen_w) * 0.01
+        card = frame_grads(gstatic, gparams, cfg, gx, gy, dev, args.seed, w,
+                           wz)
+        cpu = frame_grads(gstatic, gparams, cfg, gx, gy, torch.device("cpu"),
+                          args.seed, w, wz)
+        worst[what] = grads_agree(card, cpu, what)
+        del card, cpu
+    phase(11, f"card vs CPU grads of sum(img·w) + sum(z·wz), every leaf "
+              f"finite, max |diff| <= {GRAD_MAX_RTOL}·scale, >= 99.9% of "
+              f"large leaves within {GRAD_RTOL}·scale; worst leaf (max "
+              f"|diff| / scale) {worst}")
+
+    # -- phase 12: dense forward+backward at 1024x1024 --------------------
+    dense_fns = {"philox_uniform": rng.philox_uniform,
+                 "fused_shadow_chunk": fused_shadow.fused_chunk}
+    bsecs, bst, blaunch, bpeak, _ = time_fwd_bwd(render, sc.params, dev,
+                                                 args.seed, dense_fns)
+    brays = bst["main_rays"] + bst["shadow_rays"] + bst["gi_rays"]
+    phase(12, f"1024x1024 stand-in, RenderConfig(), mean(img²) over every "
+              f"leaf: fwd+bwd s {bsecs:.6f}; {brays / bsecs:.6e} rays/s "
+              f"(the forward's rays); {bsecs / frame_s:.3f}x phase 6's "
+              f"forward; peak {bpeak / 2**20:.1f} MiB; launches {blaunch}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    p_off, _ = grad_params(sc.params, dev)
+    img, _ = make_renderer(sc.static, RenderConfig(remat=False), 1024, 1024,
+                           device=dev)(p_off, rng.PhiloxSampler(args.seed,
+                                                                dev))
+    img.square().mean().backward()
+    torch.cuda.synchronize()
+    peak_off = torch.cuda.max_memory_allocated(dev)
+    del p_off, img
+    torch.cuda.empty_cache()
+    phase(12, f"without rematerialisation (remat=False), one fwd+bwd step: "
+              f"peak {peak_off / 2**20:.1f} MiB")
+    # one step under torch.profiler: device busy time, the largest device
+    # items, and kernel 2's backward (its calls annotated)
+    real_bwd = fused_shadow._FusedChunk.backward
+
+    def annotated(ctx, g):
+        with torch.profiler.record_function("fused_chunk_backward"):
+            return real_bwd(ctx, g)
+
+    p_prof, _ = grad_params(sc.params, dev)
+    fused_shadow._FusedChunk.backward = staticmethod(annotated)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            img, _, _ = render(p_prof, rng.PhiloxSampler(args.seed, dev))
+            img.square().mean().backward()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        fused_shadow._FusedChunk.backward = staticmethod(real_bwd)
+    del p_prof, img
+    events = prof.key_averages()
+    # the annotation's own range on the device is a span, not a kernel
+    kern = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                   and e.key != "fused_chunk_backward"),
+                  key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    k2b = [e for e in events if e.key == "fused_chunk_backward"
+           and e.device_type == DeviceType.CPU]
+    k2b_ms = k2b[0].device_time_total / 1e3 if k2b else 0.0
+    k2b_calls = k2b[0].count if k2b else 0
+    check(k2b_calls > 0, "kernel 2's backward ran in the profiled step")
+    largest = [(e.key[:48], e.count,
+                round(e.self_device_time_total / 1e3, 3)) for e in kern[:6]]
+    phase(12, f"profiled fwd+bwd step: wall {wall_ms:.3f} ms, device busy "
+              f"{busy_ms:.3f} ms over {sum(e.count for e in kern)} kernels, "
+              f"idle share {1 - busy_ms / wall_ms:.4f}; kernel 2's backward "
+              f"{k2b_ms:.3f} ms over {k2b_calls} calls (phase 10's "
+              f"{mean(bwd_runs):.4f} ms a call x {k2b_calls} = "
+              f"{mean(bwd_runs) * k2b_calls:.3f} ms); largest kernels (name, "
+              f"count, ms) {largest}")
+
+    # -- phase 13: mesh forward+backward at 512x512 -----------------------
+    mesh_fns = {"philox_uniform": rng.philox_uniform,
+                "visit_order": pallas_visit.visit_order}
+    msecs_b, mst_b, mlaunch_b, mpeak_b, _ = time_fwd_bwd(
+        mrender, msc.params, dev, args.seed, mesh_fns)
+    mrays_b = mst_b["main_rays"] + mst_b["shadow_rays"] + mst_b["gi_rays"]
+    phase(13, f"{MESH_RES}x{MESH_RES} mesh stand-in, RenderConfig(), "
+              f"mean(img²) over every leaf: fwd+bwd s {msecs_b:.6f}; "
+              f"{mrays_b / msecs_b:.6e} rays/s (the forward's rays); "
+              f"{msecs_b / mframe_s:.3f}x phase 9's forward; peak "
+              f"{mpeak_b / 2**20:.1f} MiB; launches {mlaunch_b}")
+    fwd_bwd_launches = {name: {"dense": blaunch.get(name, 0),
+                               "mesh": mlaunch_b.get(name, 0)}
+                        for name in per_frame}
+
     def row(name, source, replaces, n_launches, err, issue, library):
         head = times[name][0]
         return {"name": name, "route": "cuda", "source": source,
@@ -621,6 +833,7 @@ def main() -> int:
                 "plain_ms": plain_dev[name], "bound_ms": head["bound_ms"],
                 "bound_by": head["bound_by"], "library_ms": library,
                 "launches_per_frame": per_frame[name],
+                "launches_fwd_bwd": fwd_bwd_launches[name],
                 "shapes": times[name]}
 
     print(json.dumps({"kernels": [
@@ -628,10 +841,11 @@ def main() -> int:
             "c_raytracer_tpu/core/rng.py:103",
             launches["philox_uniform"] + mlaunches["philox_uniform"], 0.0,
             ph_issue, times["philox_uniform"][0]["library_ms"]),
-        row("fused_shadow_chunk",
-            "c_raytracer_tpu_torch/csrc/fused_shadow.cu",
-            "c_raytracer_tpu/render/fused_shadow.py:195",
-            launches["fused_shadow_chunk"], fused_err, fu_issue, None),
+        dict(row("fused_shadow_chunk",
+                 "c_raytracer_tpu_torch/csrc/fused_shadow.cu",
+                 "c_raytracer_tpu/render/fused_shadow.py:195",
+                 launches["fused_shadow_chunk"], fused_err, fu_issue, None),
+             backward_ms=mean(bwd_runs), backward_runs=bwd_runs),
         row("visit_order", "c_raytracer_tpu_torch/csrc/visit_order.cu",
             "c_raytracer_tpu/accel/pallas_visit.py:98",
             mlaunches["visit_order"], vo_err, vo_issue, None),

@@ -31,7 +31,7 @@ from c_raytracer_tpu.render import make_renderer as jax_make_renderer
 from c_raytracer_tpu.scene import load_scene as jax_load_scene
 from c_raytracer_tpu_torch.core.rng import PhiloxSampler
 from c_raytracer_tpu_torch.render import RenderConfig, make_renderer
-from c_raytracer_tpu_torch.scene import load_scene, make_scene, params_to_torch
+from c_raytracer_tpu_torch.scene import load_scene, make_scene
 
 SCENE = os.path.join(os.path.dirname(__file__), "..", "scenes",
                      "spheres_opaque.json")
@@ -120,7 +120,7 @@ def test_port_loader_renders_same_as_jax_params():
 
 
 @pytest.mark.parametrize("what", ["triangle", "transparent", "path_gi",
-                                  "grad"])
+                                  "remat_names"])
 def test_outside_the_slice_raises(what):
     mats = [dict(ks=[0.5] * 3, ka=[0.1] * 3, kr=[0] * 3, kt=[0] * 3,
                  ke=[0] * 3, shininess=8.0, refractive_index=1.0,
@@ -140,10 +140,8 @@ def test_outside_the_slice_raises(what):
         # triangles render now; the union shadow mode of a cluster scene
         # is still outside the slice
         cfg = RenderConfig(accel="cluster", shadow_mode="union")
-    params = sc.params
-    if what == "grad":
-        params = params_to_torch(sc.params, "cpu")
-        params.sphere_radius.requires_grad_(True)
-    fn = make_renderer(sc.static, cfg, 4, 4, device="cpu")
     with pytest.raises(NotImplementedError):
-        fn(params, PhiloxSampler(0, "cpu"))
+        if what == "remat_names":   # only the occlusion residual is ported
+            cfg = RenderConfig(remat_names=("occlusion", "shade_terms"))
+        fn = make_renderer(sc.static, cfg, 4, 4, device="cpu")
+        fn(sc.params, PhiloxSampler(0, "cpu"))
