@@ -11,10 +11,12 @@ This package imports ``torch`` and ``numpy`` and never ``jax``.
 
 Slices ported so far, forward and backward (gradients with respect to
 every ``SceneParams`` leaf, each round and light chunk rematerialised): the
-dense opaque render path (spheres and planes, chain integrator, ambient GI)
-and the opaque mesh path (triangles, dense or through the Morton-cluster
-sweep with the visit-order kernel, shared-origin or per-ray soft shadows,
-sphere and triangle emitters).  Everything else raises
+dense render path (spheres, planes and triangles, ambient GI), the mesh
+path (triangles through the Morton-cluster sweep with the visit-order
+kernel, shared-origin, union or per-ray soft shadows, sphere and triangle
+emitters), the chain integrator of opaque scenes and the stack integrator
+of transparent ones (refraction, the inside-object re-test, shadows tinted
+by the kt of transparent blockers).  Everything else raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 

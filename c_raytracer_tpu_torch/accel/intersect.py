@@ -8,9 +8,12 @@ kernel) from ``AUTO_THRESHOLD`` triangles on, densely below it.  The
 interface is SoA (``V3`` component tensors); the cluster sweep works on
 (R, 3) rays and converts at this seam.
 
+Shadow queries return a count of blockers per transparent material beside
+the opaque ``blocked`` mask (geometry/primitives.py ``tint_slots``);
+``tint`` forms the light's kt tint from it, differentiably.
+
 Not ported yet, and refused with ``NotImplementedError`` when a cluster
-route would take them: union shadow mode (ROADMAP: the stack integrator
-with union mode), ``bvh_super_group`` (ROADMAP: the super and sharded
+route would take them: ``bvh_super_group`` (ROADMAP: the super and sharded
 sweeps), ``closest_compact="on"`` (ROADMAP: the super and sharded sweeps)
 and primitive-range shards (ROADMAP: multi-GPU).
 """
@@ -84,7 +87,7 @@ class Intersector:
     @property
     def use_shared_shadows(self) -> bool:
         """Whether soft shadows go through ``shadow_query`` (the
-        shared-origin sweep) or through per-chunk ``any_tint``."""
+        shared-origin sweep) or through per-chunk ``any_counts``."""
         return (self.clusters is not None
                 and self.resolved_shadow_mode in ("shared", "union"))
 
@@ -124,10 +127,24 @@ class Intersector:
         out = (t, gid, torch.where(is_tri, mat_tri, mat), v3m.from_aos(n2))
         return out + (spill,) if with_spill else out
 
-    def any_tint(self, o: V3, d: V3, max_dist, exclude_gid,
-                 with_spill: bool = False):
-        """(blocked, tint V3) shadow query; o and d broadcast against each
-        other (a (1, P) origin against (lc, P) directions).
+    def retest(self, o: V3, d: V3, gid):
+        """Single-primitive inside-object re-test (render.c:143-144) of
+        primitive ``gid`` (P,), -1 for none.  Returns (t, hit, normal)."""
+        return G.intersect_prim_soa(self.ds, o, d, gid)
+
+    def tint(self, counts) -> V3:
+        """The kt tint of shadow segments from their blocker counts
+        (``any_counts``, ``shadow_query``), differentiable into
+        ``materials.kt``."""
+        return G.tint_from_counts(self.ds.materials.kt,
+                                  G.tint_slots(self.static), counts)
+
+    def any_counts(self, o: V3, d: V3, max_dist, exclude_gid,
+                   with_spill: bool = False):
+        """(blocked, counts) shadow query; o and d broadcast against each
+        other (a (1, P) origin against (lc, P) directions).  ``counts``
+        (..., n_slots) int16 counts each sample's in-range blockers of each
+        transparent material, None in a scene without one.
 
         ``with_spill``: also the per-lane int32 count of in-range
         overlapped clusters beyond the shadow visit budget (0 on the dense
@@ -135,63 +152,153 @@ class Intersector:
         lead = torch.broadcast_shapes(o.x.shape, d.x.shape)
         dev = d.x.device
         if self.clusters is None:
-            out = G.any_hit_tint_soa(self.ds, self.static, o, d, max_dist,
-                                     exclude_gid,
-                                     tri_chunk=self.cfg.tri_chunk)
+            out = G.any_hit_counts_soa(self.ds, self.static, o, d, max_dist,
+                                       exclude_gid,
+                                       tri_chunk=self.cfg.tri_chunk)
             if with_spill:
                 return out + (torch.zeros(lead, dtype=torch.int32,
                                           device=dev),)
             return out
-        blocked, tint = G.any_hit_tint_soa(self.ds, self.static, o, d,
-                                           max_dist, exclude_gid,
-                                           include_triangles=False)
+        blocked, counts = G.any_hit_counts_soa(self.ds, self.static, o, d,
+                                               max_dist, exclude_gid,
+                                               include_triangles=False)
+        cs = self.clusters
         o2 = v3m.to_aos(o).expand(lead + (3,)).reshape(-1, 3)
         d2 = v3m.to_aos(d).expand(lead + (3,)).reshape(-1, 3)
         ex = torch.as_tensor(exclude_gid, device=dev).expand(lead).reshape(-1)
+        args = [o2, d2, max_dist.expand(lead).reshape(-1), ex,
+                blocked.expand(lead).reshape(-1)]
+        if cs.has_transp:
+            args.append(counts.expand(lead + counts.shape[-1:])
+                        .reshape(-1, counts.shape[-1]))
 
-        def sweep(o2, d2, md, ex, blocked, tint):
-            (blocked, tint), spill = traverse.any_hit_tint_clusters(
-                self.clusters, o2, d2, md, ex, (blocked, tint),
+        def sweep(o2, d2, md, ex, *acc):
+            acc, spill = traverse.any_hit_tint_clusters(
+                cs, o2, d2, md, ex, acc if cs.has_transp else acc[0],
                 visits=self._shadow_visits, dead_skip=self._dead_skip,
                 with_spill=True)
-            return blocked, tint, spill
+            return (acc if cs.has_transp else (acc,)) + (spill,)
 
-        blocked, tint, spill = self._chunked(sweep, (
-            o2, d2, max_dist.expand(lead).reshape(-1), ex,
-            blocked.expand(lead).reshape(-1),
-            v3m.to_aos(tint).expand(lead + (3,)).reshape(-1, 3)))
-        out = (blocked.reshape(lead), v3m.from_aos(tint.reshape(lead + (3,))))
+        *acc, spill = self._chunked(sweep, args)
+        blocked = acc[0].reshape(lead)
+        if cs.has_transp:
+            counts = acc[1].reshape(lead + acc[1].shape[-1:])
+        out = (blocked, counts)
         return out + (spill.reshape(lead),) if with_spill else out
 
+    def _union_compact_block(self, n_pixels: int) -> int:
+        """Pixels a block of the union sweep's compaction (0 = off):
+        ``union_compact`` "auto" takes it from 512 pixels on, "on" at any
+        count that splits into two or more blocks of 32-256 pixels."""
+        mode = self.cfg.union_compact
+        if mode == "off":
+            return 0
+        pb = 256
+        while pb >= 32 and n_pixels % pb:
+            pb //= 2
+        if n_pixels % pb or n_pixels // pb < 2:
+            return 0
+        if mode == "on":
+            return pb
+        return pb if n_pixels >= 512 else 0
+
+    def _union_sweep(self, origin_aos, dirs, egid, acc, live):
+        """The union shadow sweep of ``shadow_query``: (acc, spill_max).
+
+        "frame" scope (and "auto"): one union list per pixel over all its
+        samples, and every sample tested against each listed cluster in
+        one step (the JAX package steps chunk by chunk; blocked and counts
+        do not depend on the order).  With compaction the pixels are sorted
+        by list length (a stable sort), swept in blocks that each stop at
+        their own longest list, and put back.  "chunk" scope: a list and a
+        sweep per chunk.  Every option gives the same result."""
+        scs = self._shadow_cs
+        P = origin_aos.shape[0]
+        nc = len(dirs)
+        uv = self.cfg.resolved_union_visits(scs.has_transp)
+
+        def dirs_of(ds_, pix=None):
+            def fn(chunk_i):
+                d, md = ds_[chunk_i]
+                if pix is not None:
+                    d, md = d[pix], md[pix]
+                return d, md, torch.full(md.shape, egid, device=md.device)
+            return fn
+
+        def sub(acc, sl):
+            return tuple(a[sl] for a in acc) if isinstance(acc, tuple) \
+                else acc[sl]
+
+        if self.cfg.union_scope == "chunk" and nc > 1:
+            parts, spill_max = [], torch.zeros((), dtype=torch.int32,
+                                               device=origin_aos.device)
+            for ci in range(nc):
+                one = dirs_of([dirs[ci]])
+                cids, ok, spill = traverse.shadow_union_visit_order(
+                    scs, origin_aos, one, 1, uv, live)
+                parts.append(traverse.any_hit_tint_shared(
+                    scs, origin_aos, cids, ok, one, 1,
+                    sub(acc, (slice(None), slice(ci, ci + 1))),
+                    dead_skip=self._dead_skip))
+                spill_max = torch.maximum(spill_max, spill.max())
+            return _cat(parts, 1), spill_max
+
+        cids, ok, spill = traverse.shadow_union_visit_order(
+            scs, origin_aos, dirs_of(dirs), nc, uv, live)
+        # all samples as one chunk: (P, nc·lc, ...)
+        lc = dirs[0][1].shape[1]
+        flat = [(torch.cat([d for d, _ in dirs], 1),
+                 torch.cat([md for _, md in dirs], 1))]
+        acc1 = (tuple(a.reshape((P, 1, nc * lc) + a.shape[3:]) for a in acc)
+                if isinstance(acc, tuple)
+                else acc.reshape(P, 1, nc * lc))
+        pb = self._union_compact_block(P)
+        if not pb:
+            out = traverse.any_hit_tint_shared(
+                scs, origin_aos, cids, ok, dirs_of(flat), 1, acc1,
+                dead_skip=self._dead_skip)
+        else:
+            order = torch.argsort(ok.sum(1), stable=True)
+            parts = []
+            for b0 in range(0, P, pb):
+                pix = order[b0:b0 + pb]
+                parts.append(traverse.any_hit_tint_shared(
+                    scs, origin_aos[pix], cids[pix], ok[pix],
+                    dirs_of(flat, pix), 1, sub(acc1, pix), dead_skip=True))
+            inv = torch.argsort(order)
+            out = sub(_cat(parts, 0), inv)
+        out = (tuple(a.reshape((P, nc, lc) + a.shape[3:]) for a in out)
+               if isinstance(out, tuple) else out.reshape(P, nc, lc))
+        return out, spill.max()
+
     def shadow_query(self, origin: V3, emitter_lo, emitter_hi, dirs_fn, egid,
-                     nchunks, lc):
+                     nchunks, lc, live=None):
         """Shared-origin soft-shadow query over all sample chunks at once
-        ("shared" shadow mode).
+        ("shared" and "union" shadow modes).
 
         origin: V3 (P,) hit points; emitter_lo/hi: (3,) emitter AABB;
         dirs_fn(chunk_i) -> (ldir V3 (lc, P), ldist (lc, P)), the chunk's
         sample directions (drawn once by the caller).  Returns (blocked
-        (nchunks, lc, P), tint, spill_max): tint is (tx, ty, tz) each
-        (nchunks, lc, P) for scenes with transparent materials and None
-        otherwise (opaque occlusion is all in ``blocked``); spill_max is 0
-        (the capsule list has no truncation guard)."""
-        if self.resolved_shadow_mode == "union":
-            raise NotImplementedError(
-                "union shadow mode is not ported yet (ROADMAP: the stack "
-                "integrator with union mode)")
+        (nchunks, lc, P), counts, spill_max): counts (nchunks, lc, P,
+        n_slots) when the shadow clusters hold transparent triangles, else
+        None, as the JAX package drops its tint there; spill_max, a 0-d
+        int32 tensor, the union lists' worst truncation over all P pixels
+        (0 in "shared" mode, whose capsule list has no truncation guard).
+        ``live`` (P,): in "union" mode, pixels whose result the caller
+        discards, which the sweep then skips."""
         scs = self._shadow_cs
         has_transp = scs.has_transp
 
         # sphere/plane pre-pass per chunk; the chunk's directions in the
         # (P, lc, ...) layout the cluster sweeps take
-        blocked, tints, dirs = [], [], []
+        blocked, counts, dirs = [], [], []
         for chunk_i in range(nchunks):
             ldir, ldist = dirs_fn(chunk_i)
-            b, tn = G.any_hit_tint_soa(
+            b, cnt = G.any_hit_counts_soa(
                 self.ds, self.static, origin.map(lambda x: x[None]), ldir,
                 ldist, egid, include_triangles=False)
             blocked.append(b)
-            tints.append(v3m.to_aos(tn).expand(b.shape + (3,)))
+            counts.append(cnt)
             dirs.append((v3m.to_aos(ldir).transpose(0, 1).contiguous(),
                          ldist.transpose(0, 1).contiguous()))
         blocked_pm = torch.stack(blocked, 1).permute(2, 1, 0)  # (P, nc, lc)
@@ -202,10 +309,16 @@ class Intersector:
 
         origin_aos = v3m.to_aos(origin).contiguous()
         if has_transp:
-            tint_pm = torch.stack(tints, 1).permute(2, 1, 0, 3)
-            acc = (blocked_pm, tint_pm)                 # (P, nc, lc[, 3])
+            counts_pm = torch.stack(counts, 1).permute(2, 1, 0, 3)
+            acc = (blocked_pm, counts_pm)            # (P, nc, lc[, slots])
         else:
             acc = blocked_pm
+        if self.resolved_shadow_mode == "union":
+            acc, spill_max = self._union_sweep(origin_aos, dirs, egid, acc,
+                                               live)
+            return _query_out(acc, spill_max)
+        spill_max = torch.zeros((), dtype=torch.int32,
+                                device=origin_aos.device)
         cids, ok = traverse.shadow_visit_order(scs, origin_aos, emitter_lo,
                                                emitter_hi, self._shadow_visits)
         k_short = self._shadow_shortlist
@@ -223,12 +336,7 @@ class Intersector:
             acc = traverse.any_hit_tint_shared(
                 scs, origin_aos, cids, ok, cached_dirs, nchunks, acc,
                 dead_skip=self._dead_skip)
-        if not has_transp:
-            return acc.permute(1, 2, 0), None, 0
-        blocked2, tint2 = acc
-        tint_out = tint2.permute(1, 2, 0, 3)                # (nc, lc, P, 3)
-        return (blocked2.permute(1, 2, 0),
-                (tint_out[..., 0], tint_out[..., 1], tint_out[..., 2]), 0)
+        return _query_out(acc, spill_max)
 
     @torch.no_grad()
     def emitter_bounds(self, egid: int):
@@ -256,6 +364,22 @@ class Intersector:
         outs = [fn(*(a[i:i + chunk] for a in args))
                 for i in range(0, n, chunk)]
         return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _cat(parts, dim):
+    """Concatenate accumulators (tensors or tuples of tensors) on ``dim``."""
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p, dim) for p in zip(*parts))
+    return torch.cat(parts, dim)
+
+
+def _query_out(acc, spill_max):
+    """``shadow_query``'s result from its (P, nc, lc[, slots]) accumulator:
+    (blocked (nc, lc, P), counts (nc, lc, P, slots) or None, spill_max)."""
+    if not isinstance(acc, tuple):
+        return acc.permute(1, 2, 0), None, spill_max
+    blocked, counts = acc
+    return blocked.permute(1, 2, 0), counts.permute(1, 2, 0, 3), spill_max
 
 
 def make_intersector(ds: G.DeviceScene, static, cfg,

@@ -16,6 +16,8 @@ id, with the per-ray spill count (overlaps beyond V) — the body of
   the boxes (the kernel merges the warps' lists by (key, id), which the
   CPU tests model in numpy).  The kernel's ring and shared-memory layout
   are its own compile-time constants; only the split is chosen here.
+  Lists of up to 64 live in registers, of 128 and 256 in shared memory;
+  a V above 256 is refused on the card.
 
 The JAX package keeps its kernel behind ``RenderConfig.pallas_visit``
 (default "off"), a decision about its TPU toolchain, and its kernel route
@@ -41,7 +43,7 @@ import torch
 from c_raytracer_tpu_torch import _native
 
 FLT_MAX = float(np.finfo(np.float32).max)
-LIST_SIZES = (8, 16, 32, 64)  # the kernel's compiled list sizes (VM)
+LIST_SIZES = (8, 16, 32, 64, 128, 256)  # the kernel's compiled list sizes
 LANES = 32                    # rays per block: one per lane
 MAX_CLUSTER = 8               # the portable thread-block cluster size
 N_SM_H100 = 132
@@ -68,17 +70,26 @@ class VisitSplit:
                 for s in range(n)]
 
 
+def warps_of(vm: int) -> int:
+    """Warps a block of list size ``vm``: 8 up to 32; 4 at 64, whose
+    register lists take twice the registers, and at 128; 2 at 256, whose
+    shared-memory lists take 64 KB a warp."""
+    return 8 if vm <= 32 else (4 if vm <= 128 else 2)
+
+
 def visit_split(R: int, K: int, V: int, n_sm: int = N_SM_H100) -> VisitSplit:
     """The split of an (R rays, K boxes, V visits) call on a card of
-    ``n_sm`` SMs: 8 warps a block (4 at VM = 64, whose lists take twice the
-    registers) and the smallest cluster in 1, 2, 4, 8 that puts a block on
-    each SM (R = 2048: 64 ray groups × 4); slices are multiples of 4 boxes,
-    so every slice and ring tile starts 16-byte aligned."""
+    ``n_sm`` SMs: ``warps_of(VM)`` warps a block and the smallest cluster
+    in 1, 2, 4, 8 that puts a block on each SM (R = 2048: 64 ray groups ×
+    4); slices are multiples of 4 boxes, so every slice and ring tile
+    starts 16-byte aligned.  The kernel compiles lists of up to 256: a
+    larger V is refused (the CPU's plain version takes any V)."""
     if not 1 <= V <= LIST_SIZES[-1]:
-        raise ValueError(f"visit_order: V={V} outside 1..{LIST_SIZES[-1]}")
+        raise ValueError(f"visit_order: V={V} outside 1..{LIST_SIZES[-1]}, "
+                         f"the kernel's largest list on the card")
     vm = next(v for v in LIST_SIZES if v >= V)
     groups = -(-R // LANES)
-    warps = 8 if vm <= 32 else 4
+    warps = warps_of(vm)
     cluster = next((c for c in (1, 2, 4) if groups * c >= n_sm), MAX_CLUSTER)
     per = -(-K // (warps * cluster))
     return VisitSplit(vm=vm, warps=warps, cluster=cluster, groups=groups,

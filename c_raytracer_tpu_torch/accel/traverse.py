@@ -28,17 +28,26 @@ order).  The JAX ``lax.cond`` that skips dead visit steps becomes, with
 host sync per visit; without it every visit runs, as the JAX opaque auto
 does.
 
+Soft shadows of transparent scenes count blockers: every in-range blocker
+of transparent slot ``m`` (geometry/primitives.py ``tint_slots``) adds one
+to the sample's count ``m``, and every opaque one sets its ``blocked``.
+The JAX package multiplies a tint by kt instead (an opaque blocker by 0);
+the light's tint Π kt_m^count_m is formed from the counts where it is
+shaded, so the sweeps carry no material data and their counts, saved for
+the backward, give the tint's gradient without a second sweep.  The union
+sweep (``shadow_union_visit_order``) lists, per pixel, every cluster that
+any of its samples' segments overlaps, nearest the origin first.
+
 Gradients: selection is cut from the graph where the JAX package stops it
 (the cluster AABBs and bounding spheres, the rays of every visit order,
 the shared-origin capsule and shortlist origins), while the hit distances
 of ``_mt_block`` and the winner's normal gather stay differentiable, into
 the gathered ``blk`` rows and from there, through ``pack_clusters``, into
-the triangle vertices.  The shadow sweeps return masks only; shading runs
-them without autograd (render/shading.py).
+the triangle vertices.  The shadow sweeps return masks and counts only;
+shading runs them without autograd (render/shading.py).
 
 Not ported yet, and refused where they would be taken (accel/intersect.py):
-``_visit_order_super``, ``pack_clusters_sharded``,
-``shadow_union_visit_order`` with ``_k_smallest``, and the diagnostics
+``_visit_order_super``, ``pack_clusters_sharded``, and the diagnostics
 ``spill_counts`` and ``shadow_spill_counts``.
 """
 
@@ -51,6 +60,7 @@ import torch
 
 from c_raytracer_tpu_torch.accel import pallas_visit
 from c_raytracer_tpu_torch.core import v3 as v3m
+from c_raytracer_tpu_torch.geometry.primitives import slot_counts, tint_slots
 
 FLT_MAX = float(np.finfo(np.float32).max)
 
@@ -72,11 +82,19 @@ class ClusterSet:
     flat: torch.Tensor   # (K·C, 13|17) the same fields, triangle-major
     bound: torch.Tensor  # (K, C, 4) per-triangle bounding sphere (centroid,
     #                      radius; padding lanes get radius -1)
+    # transparent packs: each packed triangle's transparent slot, -1 for an
+    # opaque or padding lane (K·C,), and the scene's number of slots
+    slot: torch.Tensor | None = None
+    n_slots: int = 0
 
     @property
     def has_transp(self) -> bool:
         """Whether the kt/transparency rows are packed."""
         return self.blk.shape[-2] == _NF_TRANSP
+
+    def slots_of(self, gid):
+        """The transparent slot of each global triangle id in ``gid``."""
+        return self.slot[gid - self.gid0]
 
 
 def _sum3(x):
@@ -141,16 +159,23 @@ def pack_clusters(ds, static, cluster_size: int) -> ClusterSet:
     dev = ds.tri_v0.device
     mat_np = np.asarray(static.material_index[ns:ns + nt], np.int64)
     transp_np = np.asarray(static.is_transparent, bool)[mat_np]
-    kt = transp = None
+    kt = transp = slot = None
+    slots = tint_slots(static)
     if transp_np.any():
         mat = torch.as_tensor(mat_np, device=dev)
         kt = ds.materials.kt[mat]                            # (nt, 3)
         transp = torch.as_tensor(transp_np, device=dev)
+        slot_np = np.full(-(-nt // cluster_size) * cluster_size, -1,
+                          np.int64)
+        slot_np[:nt] = [slots.index(m) if t else -1
+                        for m, t in zip(mat_np.tolist(), transp_np)]
+        slot = torch.as_tensor(slot_np, device=dev)
     blk, lo, hi, flat, bound = _pack_from_arrays(
         ds.tri_v0, ds.tri_e1, ds.tri_e2, ds.tri_n, ds.tri_eps,
         torch.ones(nt, dtype=torch.bool, device=dev), kt, transp,
         cluster_size)
-    return ClusterSet(blk=blk, lo=lo, hi=hi, gid0=ns, flat=flat, bound=bound)
+    return ClusterSet(blk=blk, lo=lo, hi=hi, gid0=ns, flat=flat, bound=bound,
+                      slot=slot, n_slots=len(slots))
 
 
 def _k_smallest_payload(key, payload, V):
@@ -273,19 +298,17 @@ def closest_hit_clusters(cs: ClusterSet, o, d, best, *, visits: int,
 def any_hit_tint_clusters(cs: ClusterSet, o, d, max_dist, exclude_gid, acc,
                           *, visits: int, dead_skip: bool = False,
                           with_spill: bool = False):
-    """Fold cluster triangles into the shadow accumulators (blocked (R,),
-    tint (R, 3)) — the per_ray shadow mode.
-
-    One product for both kinds of blocker: an in-range blocker multiplies
-    the tint by kt if transparent and by 0 if opaque (accel.c:360-387), so
-    a scene with no transparent material reduces to one any-reduce with no
-    material data.  Visits are nearest first, so opaque blocking is found
-    even past the budget.  ``with_spill``: also the per-ray count of
-    in-range (entry < max_dist) overlapped clusters beyond the budget."""
+    """Fold cluster triangles into the shadow accumulators — the per_ray
+    shadow mode.  ``acc`` is blocked (R,) for a pack without transparent
+    triangles, else (blocked (R,), counts (R, n_slots) int16): an in-range
+    opaque blocker sets blocked, a transparent one adds to its slot's count
+    (the JAX package multiplies a tint by kt or 0, accel.c:360-387).
+    Visits are nearest first, so opaque blocking is found even past the
+    budget.  ``with_spill``: also the per-ray count of in-range
+    (entry < max_dist) overlapped clusters beyond the budget."""
     C = cs.blk.shape[2]
     cids, ok, entry, spill = _visit_order(
         cs, o, d, visits, count_max_dist=max_dist if with_spill else None)
-    blocked, tint = acc
     lanes = torch.arange(C, device=o.device)
     for v in range(_visit_limit(ok, dead_skip)):
         cid = cids[:, v]
@@ -295,16 +318,27 @@ def any_hit_tint_clusters(cs: ClusterSet, o, d, max_dist, exclude_gid, acc,
         gid = cs.gid0 + cid[:, None] * C + lanes
         in_range = (hit & live[:, None] & (t < max_dist[:, None])
                     & (gid != exclude_gid[:, None]))
-        if not cs.has_transp:
-            blocked = blocked | in_range.any(-1)
-        else:
-            transp = blk[:, _F_TRANSP]                     # (R, C) 0/1
-            tint = tint * torch.stack(
-                [torch.where(in_range, transp * blk[:, _F_KT + c], 1.0)
-                 .prod(-1) for c in range(3)], -1)
+        acc = _fold_blockers(cs, acc, in_range, blk, gid, -1)
     if with_spill:
-        return (blocked, tint), spill
-    return blocked, tint
+        return acc, spill
+    return acc
+
+
+def _fold_blockers(cs: ClusterSet, acc, in_range, blk, gid, dim):
+    """One visit's in-range lanes (axis ``dim`` of ``in_range``) folded
+    into ``acc``: blocked, or (blocked, counts) for a transparent pack.
+    ``blk`` holds the lanes' packed rows (F on axis 1, the lanes last) and
+    ``gid`` their global ids, both broadcasting against ``in_range``."""
+    if not cs.has_transp:
+        return acc | in_range.any(dim)
+    blocked, counts = acc
+    transp = blk[:, _F_TRANSP] > 0
+    if in_range.dim() > transp.dim():
+        transp = transp[:, None]
+    blocked = blocked | (in_range & ~transp).any(dim)
+    counts = counts + slot_counts(in_range & transp, cs.slots_of(gid),
+                                  cs.n_slots, dim)
+    return blocked, counts
 
 
 def _norm3(x):
@@ -344,6 +378,81 @@ def shadow_visit_order(cs: ClusterSet, origin, hull_lo, hull_hi,
     key = torch.where(d2 <= margin * margin, sum_sq, FLT_MAX)
     vals, idx = torch.sort(key, dim=1, stable=True)
     return idx[:, :V], vals[:, :V] < FLT_MAX
+
+
+def _k_smallest(key, V: int):
+    """(vals, idx) of the V smallest entries per row of ``key`` (R, K),
+    ascending, ties to the lowest index: both branches of the JAX
+    package's ``_k_smallest`` (``lax.top_k`` above V = 32, V passes of
+    min + first index below) give this order wherever the value is below
+    FLT_MAX, and so does a stable sort (callers mask the rest)."""
+    vals, idx = torch.sort(key, dim=1, stable=True)
+    return vals[:, :V], idx[:, :V]
+
+
+def shadow_union_visit_order(cs: ClusterSet, origin, dirs_fn, nchunks,
+                             visits: int, live=None):
+    """Exact per-pixel visit list of a shared-origin shadow query: the
+    union over every sample's segment of the clusters its slab test
+    overlaps before the segment's end (the per-ray sweep's test,
+    accel.c:111-158), nearest the origin first by squared centre distance.
+
+    origin (P, 3); dirs_fn(chunk_i) -> (d (P, lc, 3), max_dist (P, lc), _).
+    Samples are tested in groups of ``su = min(8, lc)``, the last sample
+    repeated into a short last group (a repeated segment adds nothing to a
+    union).  Returns (cids (P, V), ok (P, V), spill (P,)), spill = union
+    count beyond V (spill == 0 proves the sweep exhaustive).  ``live``
+    (P,), when given, empties the lists of the pixels it marks False after
+    the spill is counted: the caller discards their result."""
+    origin = origin.detach()
+    K = cs.lo.shape[0]
+    P = origin.shape[0]
+    V = max(1, min(visits, K))
+    lo, hi = cs.lo.detach(), cs.hi.detach()
+
+    def seg_overlap_group(d, md):
+        """(P, K) union of one group's segment-slab overlaps; d (P, su, 3),
+        md (P, su)."""
+        tmin = tmax = None
+        for c in range(3):
+            dc = d[:, :, c, None]                               # (P, su, 1)
+            dd = torch.where(torch.abs(dc) < 1e-30, 1e-30, dc)
+            inv = 1.0 / dd
+            oc = origin[:, c, None, None]                       # (P, 1, 1)
+            t1 = (lo[None, None, :, c] - oc) * inv
+            t2 = (hi[None, None, :, c] - oc) * inv
+            a, b = torch.minimum(t1, t2), torch.maximum(t1, t2)
+            # the JAX package starts from -FLT_MAX / FLT_MAX, which clips
+            # only infinite slab distances: after the clamp at 0 and the
+            # compare with the segment's end the overlaps are the same
+            tmin = a if tmin is None else torch.maximum(tmin, a)
+            tmax = b if tmax is None else torch.minimum(tmax, b)
+        entry = torch.clamp(tmin, min=0.0)
+        return ((tmax >= entry) & (entry < md[:, :, None])).any(1)
+
+    union = torch.zeros((P, K), dtype=torch.bool, device=origin.device)
+    for chunk_i in range(nchunks):
+        d, md, _ = dirs_fn(chunk_i)
+        d, md = d.detach(), md.detach()
+        lc = md.shape[1]
+        su = min(8, lc)
+        pad = -(-lc // su) * su - lc
+        if pad:
+            d = torch.cat([d, d[:, -1:].expand(P, pad, 3)], 1)
+            md = torch.cat([md, md[:, -1:].expand(P, pad)], 1)
+        for g in range(0, lc + pad, su):
+            union |= seg_overlap_group(d[:, g:g + su], md[:, g:g + su])
+
+    n_union = union.sum(-1)
+    spill = torch.clamp(n_union - V, min=0).to(torch.int32)
+    if live is not None:
+        union &= live[:, None]
+    center = 0.5 * (lo + hi)
+    rel = [center[None, :, c] - origin[:, c, None] for c in range(3)]
+    key = torch.where(union, rel[0] * rel[0] + rel[1] * rel[1]
+                      + rel[2] * rel[2], FLT_MAX)
+    vals, idx = _k_smallest(key, V)
+    return idx, vals < FLT_MAX, spill
 
 
 def _mt_block_multi(blk, o, d):
@@ -429,25 +538,32 @@ def any_hit_tint_shortlist(cs: ClusterSet, origin, blk, gid, lane_ok,
     blk (P, F, K), gid (P, K), lane_ok (P, K) from shadow_shortlist;
     dirs_fn(chunk_i) -> (d (P, lc, 3), max_dist (P, lc), exclude_gid
     (P, lc)).  acc: blocked (P, nchunks, lc) for opaque scenes, (blocked,
-    tint (P, nchunks, lc, 3)) else.  Returns the updated acc (a new
-    tensor; the input is not changed)."""
-    opaque = not cs.has_transp
-    blocked, tint = (acc, None) if opaque else acc
-    blocked = blocked.clone()
-    tint = None if opaque else tint.clone()
+    counts (P, nchunks, lc, n_slots)) else.  Returns the updated acc (new
+    tensors; the inputs are not changed)."""
+    chunks = []
     for chunk_i in range(nchunks):
         d, max_dist, exclude_gid = dirs_fn(chunk_i)
         t, hit = _mt_block_multi(blk, origin, d)           # (P, lc, K)
         in_range = (hit & lane_ok[:, None, :] & (t < max_dist[..., None])
                     & (gid[:, None, :] != exclude_gid[..., None]))
-        if opaque:
-            blocked[:, chunk_i] |= in_range.any(-1)
-            continue
-        transp = blk[:, _F_TRANSP]                         # (P, K) 0/1
-        tint[:, chunk_i] *= torch.stack(
-            [torch.where(in_range, (transp * blk[:, _F_KT + c])[:, None, :],
-                         1.0).prod(-1) for c in range(3)], -1)
-    return blocked if opaque else (blocked, tint)
+        sub = _chunk_of(acc, chunk_i)
+        chunks.append(_fold_blockers(cs, sub, in_range, blk, gid[:, None],
+                                     -1))
+    return _stack_chunks(chunks)
+
+
+def _chunk_of(acc, chunk_i):
+    """Chunk ``chunk_i`` (axis 1) of an accumulator."""
+    if isinstance(acc, tuple):
+        return tuple(a[:, chunk_i] for a in acc)
+    return acc[:, chunk_i]
+
+
+def _stack_chunks(chunks):
+    """The accumulators of each chunk, stacked on axis 1."""
+    if isinstance(chunks[0], tuple):
+        return tuple(torch.stack(parts, 1) for parts in zip(*chunks))
+    return torch.stack(chunks, 1)
 
 
 def any_hit_tint_shared(cs: ClusterSet, origin, cids, ok, dirs_fn, nchunks,
@@ -458,11 +574,8 @@ def any_hit_tint_shared(cs: ClusterSet, origin, cids, ok, dirs_fn, nchunks,
     Arguments and accumulators as in any_hit_tint_shortlist, with
     cids/ok (P, V) from shadow_visit_order."""
     C = cs.blk.shape[2]
-    opaque = not cs.has_transp
-    blocked, tint = (acc, None) if opaque else acc
-    blocked = blocked.clone()
-    tint = None if opaque else tint.clone()
     lanes = torch.arange(C, device=origin.device)
+    chunks = [_chunk_of(acc, chunk_i) for chunk_i in range(nchunks)]
     for v in range(_visit_limit(ok, dead_skip)):
         cid = cids[:, v]
         live = ok[:, v]
@@ -473,12 +586,6 @@ def any_hit_tint_shared(cs: ClusterSet, origin, cids, ok, dirs_fn, nchunks,
             t, hit = _mt_block_multi(blk, origin, d)       # (P, lc, C)
             in_range = (hit & live[:, None, None] & (t < max_dist[..., None])
                         & (gid[:, None, :] != exclude_gid[..., None]))
-            if opaque:
-                blocked[:, chunk_i] |= in_range.any(-1)
-                continue
-            transp = blk[:, _F_TRANSP]                     # (P, C) 0/1
-            tint[:, chunk_i] *= torch.stack(
-                [torch.where(in_range,
-                             (transp * blk[:, _F_KT + c])[:, None, :],
-                             1.0).prod(-1) for c in range(3)], -1)
-    return blocked if opaque else (blocked, tint)
+            chunks[chunk_i] = _fold_blockers(cs, chunks[chunk_i], in_range,
+                                             blk, gid[:, None], -1)
+    return _stack_chunks(chunks)

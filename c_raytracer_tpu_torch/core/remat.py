@@ -15,7 +15,12 @@ RNG state: every draw is an explicit Philox call keyed by its sample path,
 so a recompute draws the same uniforms).  The named-residual policy is a
 per-frame dict of occlusion results keyed by sample path (tile, round,
 emitter[, chunk]): ``saved_occlusion`` runs the sweep on the forward and
-serves the kept masks on every recompute.  The dict hangs off the frame's
+serves the kept masks on every recompute.  In a scene with transparent
+materials the sweep also returns, per sample, the count of in-range
+blockers of each transparent material (int16); the recompute forms the
+tint Π kt_m^count_m from the kept counts, so its gradient reaches
+``materials.kt`` without a second sweep (geometry/primitives.py
+``tint_from_counts``).  The dict hangs off the frame's
 intersector, which the checkpointed regions hold, so it is freed with the
 graph.
 

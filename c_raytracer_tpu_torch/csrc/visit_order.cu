@@ -31,17 +31,25 @@
 // of 4 blocks of 8 warps).  A warp streams its slice through its own ring
 // of shared-memory tiles filled by cp.async.bulk copies that complete on
 // an mbarrier, so no block-wide barrier sits in the scan, and keeps each
-// ray's sorted VM-list (VM >= V, the compiled list size) in registers: a
-// box enters only with a key strictly below the list's last, after any
-// equal keys, and boxes arrive in ascending id, so each warp's list is the
-// first VM of its slice's stable sort.  The lists then merge by (key, id):
-// each entry's place is its index plus the number of smaller entries in
-// the other lists (a binary search in each), first among the warps of a
-// block through shared memory, then among the blocks of the cluster
-// through distributed shared memory.  The slices are id-contiguous, so
-// (key, id) order is the stable-sort order, ties included; each ray's
-// counts add up to the spill.  The first V of the merged lists are exact:
-// an entry among a ray's V smallest is among the VM smallest of its slice.
+// ray's sorted VM-list (VM >= V, the compiled list size): a box enters
+// only with a key strictly below the list's last, after any equal keys,
+// and boxes arrive in ascending id, so each warp's list is the first VM of
+// its slice's stable sort.  The lists then merge by (key, id): each
+// entry's place is its index plus the number of smaller entries in the
+// other lists (a binary search in each), first among the warps of a block
+// through shared memory, then among the blocks of the cluster through
+// distributed shared memory.  The slices are id-contiguous, so (key, id)
+// order is the stable-sort order, ties included; each ray's counts add up
+// to the spill.  The first V of the merged lists are exact: an entry among
+// a ray's V smallest is among the VM smallest of its slice.
+//
+// Up to VM = 64 the lists live in registers, kept sorted by one bubble
+// pass per insertion.  VM = 128 and 256 (the transparent scenes' larger
+// budgets, e.g. 104 and 128) would take 512 and 1,024 registers a thread;
+// their lists live in shared memory instead, laid out as the merge reads
+// them (entry j of lane l at j * 32 + l, so the lanes never share a
+// bank), with the list's length in a register: an insertion finds its
+// place by binary search after the equal keys and shifts the tail by one.
 //
 // The ring's tile (64 boxes) and depth (4 stages) are compile-time
 // constants, and the block's shared-memory layout (smem_bytes) lives here
@@ -51,12 +59,13 @@
 // Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 10;
 // PERF.md): 0.054 ms at R = 2048, K = 8,556, V = 16, against 0.44 ms for
 // the earlier design of one warp per block scanning all K boxes.  VM = 64
-// (the transparent scenes' V) needs 255 registers and spills a few hundred
-// bytes a thread; it runs 4 warps a block.
+// needs 255 registers and spills a few hundred bytes a thread; it runs 4
+// warps a block, VM = 128 4 and VM = 256 2.
 //
 // C ABI (bound with ctypes in c_raytracer_tpu_torch/_native.py): returns
 // the launch's cudaError_t (0 means launched), or cudaErrorInvalidValue for
-// a V above the largest compiled list or a split the kernel does not take.
+// a V above the largest compiled list (256) or a split the kernel does not
+// take.
 
 #include <cfloat>
 #include <cstdint>
@@ -85,10 +94,13 @@ struct Params {
   int slice;  // boxes per warp slice, a multiple of 4
 };
 
-// Most warps a block of list size VM may have: the lists live in
-// registers, and a block must fit the SM's 65,536.
+// Whether a list of size VM lives in shared memory (else in registers).
+__host__ __device__ constexpr bool smem_list(int vm) { return vm > 64; }
+
+// Most warps a block of list size VM may have: register lists must fit
+// the SM's 65,536 registers, shared-memory lists its 227 KB.
 __host__ __device__ constexpr int max_warps(int vm) {
-  return vm <= 16 ? 16 : (vm == 32 ? 8 : 4);
+  return vm <= 16 ? 16 : (vm == 32 ? 8 : (vm <= 128 ? 4 : 2));
 }
 
 __host__ __device__ constexpr int align16(int n) {
@@ -96,15 +108,21 @@ __host__ __device__ constexpr int align16(int n) {
 }
 
 // A block's dynamic shared memory, in three parts: the ring mbarriers
-// (bars_bytes); the ring, which the warps' lists and counts reuse after
-// the scan (ring_bytes); the block's merged list and counts.
+// (bars_bytes); the ring and the warps' lists and counts (ring_bytes),
+// which for register lists reuse the ring after the scan and for
+// shared-memory lists follow it (lists_offset); the block's merged list
+// and counts.
 __host__ __device__ constexpr int bars_bytes(int warps) {
   return align16(8 * warps * kStages);
+}
+__host__ __device__ constexpr int lists_offset(int vm, int warps) {
+  return smem_list(vm) ? 24 * kTile * kStages * warps : 0;
 }
 __host__ __device__ constexpr int ring_bytes(int vm, int warps) {
   const int ring = 24 * kTile * kStages * warps;
   const int lists = 4 * warps * kLanes * (2 * vm + 2);
-  return align16(ring > lists ? ring : lists);
+  return align16(smem_list(vm) ? ring + lists
+                               : (ring > lists ? ring : lists));
 }
 __host__ __device__ constexpr int smem_bytes(int vm, int warps) {
   return bars_bytes(warps) + ring_bytes(vm, warps) + 4 * kLanes * (2 * vm + 2);
@@ -112,7 +130,9 @@ __host__ __device__ constexpr int smem_bytes(int vm, int warps) {
 static_assert(smem_bytes(8, max_warps(8)) <= kSmemMax &&
                   smem_bytes(16, max_warps(16)) <= kSmemMax &&
                   smem_bytes(32, max_warps(32)) <= kSmemMax &&
-                  smem_bytes(64, max_warps(64)) <= kSmemMax,
+                  smem_bytes(64, max_warps(64)) <= kSmemMax &&
+                  smem_bytes(128, max_warps(128)) <= kSmemMax &&
+                  smem_bytes(256, max_warps(256)) <= kSmemMax,
               "the largest block of each list size must fit shared memory");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -170,6 +190,87 @@ __device__ __forceinline__ void issue(const Params& p, float* slo,
   }
 }
 
+// A ray's sorted list of the VM nearest boxes so far, in registers.
+template <int VM, bool kSmem = smem_list(VM)>
+struct List {
+  float key[VM];
+  int id[VM];
+
+  __device__ __forceinline__ void init(float*, int*) {
+#pragma unroll
+    for (int j = 0; j < VM; ++j) {
+      key[j] = FLT_MAX;
+      id[j] = 0;
+    }
+  }
+  // box b with key e < the last key: one bubble pass from the back moves
+  // it forward past every strictly larger key, behind the equal ones
+  __device__ __forceinline__ void insert(float e, int b) {
+    if (!(e < key[VM - 1])) return;
+    key[VM - 1] = e;
+    id[VM - 1] = b;
+#pragma unroll
+    for (int j = VM - 1; j > 0; --j) {
+      if (key[j] < key[j - 1]) {
+        const float tk = key[j];
+        key[j] = key[j - 1];
+        key[j - 1] = tk;
+        const int ti = id[j];
+        id[j] = id[j - 1];
+        id[j - 1] = ti;
+      }
+    }
+  }
+  // the list into its warp's merge arrays (stride kLanes); its length
+  __device__ __forceinline__ int store(float* wk, int* wi) {
+    int n = 0;
+#pragma unroll
+    for (int j = 0; j < VM; ++j) {
+      n += key[j] < FLT_MAX ? 1 : 0;
+      wk[j * kLanes] = key[j];
+      wi[j * kLanes] = id[j];
+    }
+    return n;
+  }
+};
+
+// The same list in shared memory, where the merge reads it: entry j at
+// k[j * kLanes], i[j * kLanes]; its length n in a register.
+template <int VM>
+struct List<VM, true> {
+  float* k;
+  int* i;
+  int n;
+
+  __device__ __forceinline__ void init(float* wk, int* wi) {
+    k = wk;
+    i = wi;
+    n = 0;
+  }
+  __device__ __forceinline__ void insert(float e, int b) {
+    if (!(e < FLT_MAX) || (n == VM && !(e < k[(VM - 1) * kLanes]))) return;
+    // the first entry with a key above e: boxes arrive in ascending id, so
+    // e goes after the entries of equal key
+    int lo = 0, hi = n;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (k[mid * kLanes] <= e) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    for (int j = n < VM ? n : VM - 1; j > lo; --j) {
+      k[j * kLanes] = k[(j - 1) * kLanes];
+      i[j * kLanes] = i[(j - 1) * kLanes];
+    }
+    k[lo * kLanes] = e;
+    i[lo * kLanes] = b;
+    n += n < VM ? 1 : 0;
+  }
+  __device__ __forceinline__ int store(float*, int*) { return n; }
+};
+
 // The slab test of box b and, on overlap, the count and the insertion.
 template <int VM>
 __device__ __forceinline__ void visit(float lx, float ly, float lz, float hx,
@@ -177,8 +278,7 @@ __device__ __forceinline__ void visit(float lx, float ly, float lz, float hx,
                                       const float (&org)[3],
                                       const float (&inv)[3], bool live,
                                       bool cap, float max_dist,
-                                      float (&key)[VM], int (&id)[VM],
-                                      int& counted) {
+                                      List<VM>& list, int& counted) {
   float t1 = (lx - org[0]) * inv[0];
   float t2 = (hx - org[0]) * inv[0];
   float tmin = fminf(t1, t2);
@@ -194,23 +294,7 @@ __device__ __forceinline__ void visit(float lx, float ly, float lz, float hx,
   const float e = fmaxf(tmin, 0.0f);
   if (live && tmax >= e) {
     counted += (!cap || e < max_dist) ? 1 : 0;
-    if (e < key[VM - 1]) {
-      key[VM - 1] = e;
-      id[VM - 1] = b;
-      // one bubble pass from the back: the new key moves forward past
-      // every strictly larger key and stops behind equal ones
-#pragma unroll
-      for (int j = VM - 1; j > 0; --j) {
-        if (key[j] < key[j - 1]) {
-          const float tk = key[j];
-          key[j] = key[j - 1];
-          key[j - 1] = tk;
-          const int ti = id[j];
-          id[j] = id[j - 1];
-          id[j - 1] = ti;
-        }
-      }
-    }
+    list.insert(e, b);
   }
 }
 
@@ -247,7 +331,8 @@ visit_order_kernel(const Params p) {
   const int ring0 = bars_bytes(W);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem) + warp * S;
   float* ring = reinterpret_cast<float*>(smem + ring0) + warp * S * 6 * T;
-  float* wkey = reinterpret_cast<float*>(smem + ring0);       // [W][VM][32]
+  float* wkey = reinterpret_cast<float*>(               // [W][VM][32]
+      smem + ring0 + lists_offset(VM, W));
   int* wid = reinterpret_cast<int*>(wkey + W * VM * kLanes);  // [W][VM][32]
   int* wn = wid + W * VM * kLanes;                            // [W][32]
   int* wcnt = wn + W * kLanes;                                // [W][32]
@@ -296,13 +381,8 @@ visit_order_kernel(const Params p) {
     issue(p, ring + t * 6 * T, bars + t, b0, min(T, end - b0), lane);
   }
 
-  float key[VM];
-  int id[VM];
-#pragma unroll
-  for (int j = 0; j < VM; ++j) {
-    key[j] = FLT_MAX;
-    id[j] = 0;
-  }
+  List<VM> list;
+  list.init(wkey + warp * VM * kLanes + lane, wid + warp * VM * kLanes + lane);
   int counted = 0;
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % S;
@@ -321,18 +401,18 @@ visit_order_kernel(const Params p) {
       const float4 h1 = reinterpret_cast<const float4*>(shi + 3 * b)[1];
       const float4 h2 = reinterpret_cast<const float4*>(shi + 3 * b)[2];
       visit<VM>(l0.x, l0.y, l0.z, h0.x, h0.y, h0.z, b0 + b, org, inv, live,
-                cap, max_dist, key, id, counted);
+                cap, max_dist, list, counted);
       visit<VM>(l0.w, l1.x, l1.y, h0.w, h1.x, h1.y, b0 + b + 1, org, inv,
-                live, cap, max_dist, key, id, counted);
+                live, cap, max_dist, list, counted);
       visit<VM>(l1.z, l1.w, l2.x, h1.z, h1.w, h2.x, b0 + b + 2, org, inv,
-                live, cap, max_dist, key, id, counted);
+                live, cap, max_dist, list, counted);
       visit<VM>(l2.y, l2.z, l2.w, h2.y, h2.z, h2.w, b0 + b + 3, org, inv,
-                live, cap, max_dist, key, id, counted);
+                live, cap, max_dist, list, counted);
     }
     for (; b < nb; ++b) {
       visit<VM>(slo[3 * b], slo[3 * b + 1], slo[3 * b + 2], shi[3 * b],
                 shi[3 * b + 1], shi[3 * b + 2], b0 + b, org, inv, live, cap,
-                max_dist, key, id, counted);
+                max_dist, list, counted);
     }
     __syncwarp();  // every lane is done with the stage before its refill
     if (t + S < n_tiles) {
@@ -342,14 +422,10 @@ visit_order_kernel(const Params p) {
   }
 
   // -- merge 1: the W lists of the block, through shared memory ----------
-  __syncthreads();  // every warp is done with the ring: the lists reuse it
-  int n_mine = 0;
-#pragma unroll
-  for (int j = 0; j < VM; ++j) {
-    n_mine += key[j] < FLT_MAX ? 1 : 0;
-    wkey[(warp * VM + j) * kLanes + lane] = key[j];
-    wid[(warp * VM + j) * kLanes + lane] = id[j];
-  }
+  __syncthreads();  // every warp is done with the ring: register lists
+                    // reuse it
+  const int n_mine = list.store(wkey + warp * VM * kLanes + lane,
+                                wid + warp * VM * kLanes + lane);
   wn[warp * kLanes + lane] = n_mine;
   wcnt[warp * kLanes + lane] = counted;
   __syncthreads();
@@ -476,6 +552,10 @@ extern "C" int crt_visit_order(const void* o, const void* d, const void* lo,
     err = launch<32>(p, groups, cluster, warps, s);
   } else if (V <= 64) {
     err = launch<64>(p, groups, cluster, warps, s);
+  } else if (V <= 128) {
+    err = launch<128>(p, groups, cluster, warps, s);
+  } else if (V <= 256) {
+    err = launch<256>(p, groups, cluster, warps, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -11,14 +11,20 @@
   ``tri_chunk`` (the first winner inside a chunk; a later primitive or
   chunk wins only on a strictly smaller t, accel.c:328), with the
   winner's material carried through the fold;
-* ``any_hit_tint_soa`` — the shadow query: opaque blockers block,
-  transparent blockers tint the light by their kt (accel.c:360-387).
+* ``any_hit_counts_soa`` — the shadow query: opaque blockers block, and
+  each transparent blocker adds one to its material's count, from which
+  ``tint_from_counts`` forms the light's tint Π kt (accel.c:360-387);
+* ``intersect_prim_soa`` — the inside-object re-test of the stack
+  integrator (render.c:143-144): one primitive per ray.
 
 Global primitive ids run spheres, then triangles, then planes
 (scene/types.py), so a plane's id is ``n_spheres + n_triangles + i``.
 
-Not ported yet: ``intersect_prim_soa``, the inside-object re-test of the
-stack integrator (ROADMAP: the stack integrator).
+Transparent materials are numbered by ``tint_slots``: slot ``m`` is the
+``m``-th material with ``is_transparent``.  A count of blockers per slot is
+what the occlusion sweeps return: it is discrete, so the frame keeps it for
+the backward (core/remat.py), and the tint, with its gradient into
+``materials.kt``, is formed from it wherever it is needed.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ class DeviceScene:
     prim_eps: torch.Tensor     # (N,)
     # per-material tables
     mat_reflective: torch.Tensor  # (M,) bool, static.is_reflective
+    mat_transparent: torch.Tensor  # (M,) bool, static.is_transparent
     materials: T.Materials
     ambient: torch.Tensor      # (3,)
 
@@ -93,6 +100,7 @@ def device_scene(params: T.SceneParams, static: T.SceneStatic) -> DeviceScene:
                                 device=dev),
         prim_eps=eps,
         mat_reflective=torch.as_tensor(static.is_reflective, device=dev),
+        mat_transparent=torch.as_tensor(static.is_transparent, device=dev),
         materials=params.materials,
         ambient=params.ambient,
     )
@@ -242,27 +250,57 @@ def closest_hit_soa(ds: DeviceScene, static, o: V3, d: V3, *,
     return bt, bg, bm, bn
 
 
-def any_hit_tint_soa(ds: DeviceScene, static, o: V3, d: V3, max_dist,
-                     exclude_gid, *, tri_chunk: int = 512,
-                     include_triangles: bool = True):
+def tint_slots(static) -> tuple:
+    """The transparent materials' ids, in slot order."""
+    return tuple(m for m, tr in enumerate(static.is_transparent) if tr)
+
+
+def tint_from_counts(kt, slots: tuple, counts) -> V3:
+    """The tint Π_m kt[slots[m]]^counts[..., m] of a shadow segment, from
+    its count of blockers per transparent slot; differentiable into the
+    (M, 3) table ``kt``.  ``pow`` of a zero count is 1 with a zero
+    gradient, whatever the base."""
+    comps = []
+    for c in range(3):
+        t = None
+        for m, mat in enumerate(slots):
+            f = torch.pow(kt[mat, c], counts[..., m].to(kt.dtype))
+            t = f if t is None else t * f
+        comps.append(t)
+    return V3(*comps)
+
+
+def slot_counts(mask, slot, n_slots: int, dim: int):
+    """Per transparent slot, the count of ``mask`` lanes of that slot over
+    axis ``dim``, stacked on a new trailing axis (int16)."""
+    return torch.stack([(mask & (slot == m)).sum(dim, dtype=torch.int16)
+                        for m in range(n_slots)], -1)
+
+
+def any_hit_counts_soa(ds: DeviceScene, static, o: V3, d: V3, max_dist,
+                       exclude_gid, *, tri_chunk: int = 512,
+                       include_triangles: bool = True):
     """Shadow query (is_light_blocked, render.c:126-134).
 
-    Opaque hits at t < max_dist block; transparent hits multiply the tint
-    by their material's kt (accel.c:369-374).  Ray components may have any
-    shape (a (lc, P) batch of samples against (P,) origins broadcasts).
-    Returns (blocked, tint V3) of the rays' shape."""
+    Opaque hits at t < max_dist block; a transparent hit adds one to its
+    material's slot count (accel.c:369-374 multiplies the tint by its kt).
+    Ray components may have any shape (a (lc, P) batch of samples against
+    (P,) origins broadcasts).  Returns (blocked, counts (..., n_slots)
+    int16, or None for a scene without a transparent material) of the
+    rays' shape."""
     shape = torch.broadcast_shapes(o.x.shape, d.x.shape)
     dev = d.x.device
     blocked = torch.zeros(shape, dtype=torch.bool, device=dev)
-    tint = v3m.full(shape, 1.0, device=dev)
+    slots = tint_slots(static)
+    counts = (torch.zeros(shape + (len(slots),), dtype=torch.int16,
+                          device=dev) if slots else None)
     ns, nt, npl = static.n_spheres, static.n_triangles, static.n_planes
 
     def fold_one(t, hit, gid, mi):
-        nonlocal blocked, tint
+        nonlocal blocked
         in_range = hit & (t < max_dist) & (exclude_gid != gid)
         if static.is_transparent[mi]:
-            kt = v3m.splat(ds.materials.kt[mi])
-            tint = tint * v3m.where(in_range, kt, 1.0)
+            counts[..., slots.index(mi)] += in_range
         else:
             blocked = blocked | in_range
 
@@ -283,7 +321,11 @@ def any_hit_tint_soa(ds: DeviceScene, static, o: V3, d: V3, max_dist,
         transp_all = transp_tab[mat_c] & valid                  # (nchunks, C)
         any_transp = bool(np.asarray(static.is_transparent, bool)[
             np.asarray(static.material_index[ns:ns + nt], np.int64)].any())
-        kt_all = ds.materials.kt[mat_c] if any_transp else None
+        if any_transp:
+            slot_all = torch.as_tensor(                         # (nchunks, C)
+                [slots.index(m) if tr else -1
+                 for m, tr in enumerate(static.is_transparent)],
+                device=dev)[mat_c]
         # the chunk axis C leads; the rays' axes follow
         cdim = (C,) + (1,) * len(shape)
         iota = torch.arange(C, device=dev).reshape(cdim)
@@ -306,9 +348,62 @@ def any_hit_tint_soa(ds: DeviceScene, static, o: V3, d: V3, max_dist,
                 continue
             tr_k = ex(transp_all[k])
             blocked = blocked | (in_range & ~tr_k).any(0)
-            tr = in_range & tr_k
-            tint = V3(*(
-                comp_t * torch.where(tr, ex(kt_all[k][:, c]), 1.0).prod(0)
-                for c, comp_t in enumerate(tint)))
+            counts = counts + slot_counts(in_range & tr_k, ex(slot_all[k]),
+                                          len(slots), 0)
 
-    return blocked, tint
+    return blocked, counts
+
+
+def intersect_prim_soa(ds: DeviceScene, o: V3, d: V3, gid):
+    """Re-test one primitive per ray (render.c:143-144, rays inside an
+    object): primitive ``gid`` (P,), or a miss where gid is -1.  The
+    per-ray parameters are gathered; the arithmetic is the JAX package's
+    ``intersect_prim`` (sphere normal by division, the plane's flipped to
+    face the ray).  Returns (t, hit, normal V3)."""
+    ns = ds.sph_center.shape[0]
+    nt = ds.tri_v0.shape[0]
+    npl = ds.pln_n.shape[0]
+    g = torch.clamp(gid, min=0)
+    zero_t = torch.zeros(o.x.shape, dtype=torch.float32, device=o.x.device)
+    zero_h = torch.zeros(o.x.shape, dtype=torch.bool, device=o.x.device)
+    zero_n = V3(zero_t, zero_t, zero_t)
+
+    if ns:
+        si = torch.clamp(g, 0, ns - 1)
+        center = v3m.rows(ds.sph_center, si)
+        radius = ds.sph_radius[si]
+        rel = o - center
+        b = -v3m.dot(d, rel)
+        c = v3m.magsqr(rel) - radius * radius
+        det = b * b - c
+        sq = _safe_sqrt(det)
+        t_near = b - sq
+        st = torch.where(t_near > ds.sph_eps[si], t_near, b + sq)
+        sh = (det >= 0) & (st > ds.sph_eps[si])
+        sn = (o + d * st - center).map(lambda a: a / radius)
+    else:
+        st, sh, sn = zero_t, zero_h, zero_n
+
+    if nt:
+        ti = torch.clamp(g - ns, 0, nt - 1)
+        v0, e1, e2 = (v3m.rows(x, ti) for x in (ds.tri_v0, ds.tri_e1,
+                                                 ds.tri_e2))
+        tt, th = _mt_test_soa(o, d, v0, e1, e2, ds.tri_eps[ti])
+        tn = v3m.rows(ds.tri_n, ti)
+    else:
+        tt, th, tn = zero_t, zero_h, zero_n
+
+    if npl:
+        pi = torch.clamp(g - ns - nt, 0, npl - 1)
+        n = v3m.rows(ds.pln_n, pi)
+        pt, ph, a = _plane_test_soa(o, d, n, ds.pln_d[pi], ds.pln_eps[pi])
+        pn = v3m.where(torch.signbit(a), n, -n)
+    else:
+        pt, ph, pn = zero_t, zero_h, zero_n
+
+    is_s = gid < ns
+    is_t = (gid >= ns) & (gid < ns + nt)
+    t = torch.where(is_s, st, torch.where(is_t, tt, pt))
+    hit = (gid >= 0) & torch.where(is_s, sh, torch.where(is_t, th, ph))
+    n = v3m.where(is_s, sn, v3m.where(is_t, tn, pn))
+    return t, hit, n

@@ -1,11 +1,19 @@
-"""Wavefront integrator, chain half, as in ``c_raytracer_tpu.render.integrator``:
-the reference's recursive cast_ray tree (render.c:136-343) for scenes with
-no transparent material, where refraction can never fire and each ray has
-at most one child (its mirror reflection), so the pending set is one
-carried ray per pixel.
+"""Wavefront integrator, as in ``c_raytracer_tpu.render.integrator``: the
+reference's recursive cast_ray tree (render.c:136-343) in rounds.
 
-The JAX package's ``lax.scan`` over bounce rounds is a Python loop here,
-and its dead-round ``lax.cond`` is ``if not live.any(): break`` — one host
+* chain (no transparent material): refraction can never fire and each ray
+  has at most one child (its mirror reflection), so the pending set is one
+  carried ray per pixel;
+* stack (any transparent material): a per-pixel LIFO of pending rays
+  (``RayStack``, S slots) holds the reflect + refract tree; each round pops
+  one ray per pixel, traces it with the inside-object re-test, shades it
+  and pushes its refraction child, then its reflection child.  A push onto
+  a full stack is dropped and counted.  Pop and push are one-hot selects
+  and sums over the small S axis, as in the JAX package: no indexed gather
+  or scatter, whose CUDA backward would sort.
+
+The JAX package's ``lax.scan`` over rounds is a Python loop here, and its
+dead-round ``lax.cond`` is a ``break`` once no pixel has a ray: one host
 sync per round (a CUDA graph of the round body would remove it).
 
 The intersector (and the cluster packs of a mesh scene) depends only on
@@ -14,14 +22,15 @@ hands it to every tile.
 
 Gradients: each round's trace + shade is a rematerialised region
 (core/remat.py), so across rounds a tile keeps only each round's inputs;
-the stats, the ``live.any()`` break and the z update stay outside it, and
-a recompute counts nothing twice.
+the stats, the break, the stack and the z update stay outside it, and a
+recompute counts nothing twice.
 
-Not ported yet, and refused with ``NotImplementedError``: the stack
-integrator (transparent materials, refraction) and path-traced GI.
+Not ported yet, and refused with ``NotImplementedError``: path-traced GI.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -36,21 +45,33 @@ STAT_KEYS = ("main_rays", "shadow_rays", "gi_rays", "children_pushed",
              "dropped", "shadow_spill_max", "visit_spill_max")
 
 
-def _trace(ix, o: V3, d: V3):
-    """Intersection step of the JAX package's ``_trace(..., inside=None)``:
-    chain-mode rays never enter objects (the inside-object re-test belongs
-    to the stack integrator).  Returns (t, gid, mat, normal V3,
-    visit_spill (P,)): the closest-hit sweep's per-lane truncation count,
-    0 on the exhaustive dense route."""
-    return ix.closest(o, d, with_spill=True)
+def _trace(ix, o: V3, d: V3, inside=None):
+    """Intersection step with the inside-object re-test (render.c:143-148):
+    a ray inside object ``inside`` (P,) tests that object first and takes
+    its hit even if other geometry is closer; -1 for none.  ``inside=None``
+    skips the re-test (chain rays never enter objects).  Returns (t, gid,
+    mat, normal V3, visit_spill (P,)): the closest-hit sweep's per-lane
+    truncation count, 0 on the exhaustive dense route."""
+    tc, gc, mc, nc, sp = ix.closest(o, d, with_spill=True)
+    if inside is None:
+        return tc, gc, mc, nc, sp
+    ti, hi, ni = ix.retest(o, d, inside)
+    use_inside = (inside >= 0) & hi
+    t = torch.where(use_inside, ti, tc)
+    gid = torch.where(use_inside, inside, gc)
+    mat_in = ix.ds.mat_idx[inside.clamp(0, ix.ds.mat_idx.shape[0] - 1)]
+    mat = torch.where(use_inside, mat_in, mc)
+    return t, gid, mat, v3m.where(use_inside, ni, nc), sp
 
 
 def _round_shade(ix, static, cfg, k_shade, ro: V3, rd: V3, rkr: V3,
-                 remaining: int, active):
-    """Trace + shade + child spawn for one chain round (ambient GI, no
-    refraction).  Returns a dict of per-lane results."""
+                 remaining, active, inside=None):
+    """Trace + shade + child spawn for one round (ambient GI).
+    ``remaining`` is an int (chain: the same depth on every lane) or (P,);
+    ``inside`` (P,) turns on the stack's re-test and refraction children.
+    Returns a dict of per-lane results."""
     ds = ix.ds
-    t, gid, mat, normal, tr_spill = _trace(ix, ro, rd)
+    t, gid, mat, normal, tr_spill = _trace(ix, ro, rd, inside)
     hit = gid >= 0
     active_hit = active & hit
     visit_spill = torch.where(active, tr_spill, 0).max()
@@ -74,11 +95,24 @@ def _round_shade(ix, static, cfg, k_shade, ro: V3, rd: V3, rkr: V3,
     refl_kr = rkr * v3m.rows(ds.materials.kr, mat)
     push_refl = (can_bounce & reflective
                  & (v3m.magsqr(refl_kr) > cfg.min_light_intensity_sqr))
+    if inside is not None:   # a ray leaving an object reflects no further
+        push_refl = push_refl & (inside != gid)
     refl_d = shading.reflect_dir(rd, normal, aux["b"])
-    return dict(t=t, gid=gid, hit=hit, active_hit=active_hit,
-                contrib=contrib, z_val=z_val, hit_pt=aux["hit_pt"],
-                push_refl=push_refl, refl_d=refl_d, refl_kr=refl_kr,
-                visit_spill=visit_spill, shadow_spill=aux["shadow_spill"])
+    out = dict(t=t, gid=gid, hit=hit, active_hit=active_hit,
+               contrib=contrib, z_val=z_val, hit_pt=aux["hit_pt"],
+               push_refl=push_refl, refl_d=refl_d, refl_kr=refl_kr,
+               visit_spill=visit_spill, shadow_spill=aux["shadow_spill"])
+    if inside is not None:
+        refr_kt = rkr * v3m.rows(ds.materials.kt, mat)
+        ior = ds.materials.refractive_index[mat]
+        refr_d, refr_valid = shading.refract_dir(
+            rd, normal, aux["b"], aux["is_outside"], ior)
+        out.update(push_refr=(can_bounce & ds.mat_transparent[mat]
+                              & refr_valid
+                              & (v3m.magsqr(refr_kt)
+                                 > cfg.min_light_intensity_sqr)),
+                   refr_d=refr_d, refr_kt=refr_kt)
+    return out
 
 
 def _stat_weights(static: T.SceneStatic, cfg: RenderConfig):
@@ -144,6 +178,113 @@ def _render_chain(ix, static: T.SceneStatic, cfg: RenderConfig, key, o: V3,
     return _finish(color, z, stats, with_stats)
 
 
+@dataclasses.dataclass(frozen=True)
+class RayStack:
+    """Per-pixel LIFO of pending rays: V3 fields of (S, P) components,
+    ``remaining`` and ``inside`` (S, P), ``count`` (P,) the depth."""
+
+    o: V3
+    d: V3
+    kr: V3
+    remaining: torch.Tensor   # (S, P) int64 bounces left
+    inside: torch.Tensor      # (S, P) int64 gid of the enclosing object, -1
+    count: torch.Tensor       # (P,) int64
+
+
+def _stack_init(o: V3, d: V3, max_bounces: int, stack_size: int) -> RayStack:
+    """Each pixel's primary ray in slot 0; the other slots zero."""
+    S, (P,), dev = stack_size, o.x.shape, o.x.device
+    slot0 = (torch.arange(S, device=dev) == 0)[:, None]
+
+    def put0(v):
+        return torch.where(slot0, v, 0.0)
+    return RayStack(
+        o=o.map(put0), d=d.map(put0),
+        kr=V3(*(put0(torch.ones(P, device=dev)) for _ in range(3))),
+        remaining=torch.where(slot0, max_bounces, 0).expand(S, P),
+        inside=torch.full((S, P), -1, dtype=torch.int64, device=dev),
+        count=torch.ones(P, dtype=torch.int64, device=dev))
+
+
+def _stack_pop(st: RayStack):
+    """Pop each pixel's top ray: ((o, d, kr, remaining, inside), active,
+    stack).  A pixel with an empty stack pops slot 0 and is not active."""
+    S = st.remaining.shape[0]
+    active = st.count > 0
+    top = torch.clamp(st.count - 1, min=0)
+    onehot = torch.arange(S, device=top.device)[:, None] == top[None]
+
+    def take(f):
+        return torch.where(onehot, f, 0).sum(0)
+    ray = (st.o.map(take), st.d.map(take), st.kr.map(take),
+           take(st.remaining), take(st.inside))
+    return ray, active, dataclasses.replace(st, count=st.count - active.long())
+
+
+def _stack_push(st: RayStack, push, o: V3, d: V3, kr: V3, remaining,
+                inside) -> RayStack:
+    """Push one ray per pixel where ``push``; a full stack drops it (the
+    bounded stack replaces the reference's unbounded recursion, and the
+    caller counts the drops)."""
+    S = st.remaining.shape[0]
+    ok = push & (st.count < S)
+    onehot = ((torch.arange(S, device=ok.device)[:, None] == st.count[None])
+              & ok[None])
+
+    def put(f, v):
+        return torch.where(onehot, v[None], f)
+    return RayStack(
+        o=V3(*map(put, st.o, o)), d=V3(*map(put, st.d, d)),
+        kr=V3(*map(put, st.kr, kr)),
+        remaining=put(st.remaining, remaining),
+        inside=put(st.inside, inside), count=st.count + ok.long())
+
+
+def _render_stack(ix, static: T.SceneStatic, cfg: RenderConfig, key, o: V3,
+                  d: V3, *, with_stats: bool):
+    P, dev = o.x.shape, o.x.device
+    sh_w, gi_p, gi_s = _stat_weights(static, cfg)
+    st = _stack_init(o, d, cfg.max_bounces, cfg.stack_size)
+    color = v3m.full(P, 0.0, device=dev)
+    z = torch.zeros(P, dtype=torch.float32, device=dev)
+    stats = torch.zeros(len(STAT_KEYS), dtype=torch.float64, device=dev)
+    no_inside = torch.full(P, -1, dtype=torch.int64, device=dev)
+
+    for round_i in range(cfg.resolved_rounds(True)):
+        (ro, rd, rkr, remaining, inside), active, st = _stack_pop(st)
+        if not bool(active.any()):
+            break  # every stack is empty: the remaining rounds do no work
+        r = remat.checkpoint(cfg, _round_shade, ix, static, cfg,
+                             key.fold_in(round_i), ro, rd, rkr, remaining,
+                             active, inside)
+        color = color + r["contrib"]
+        is_primary = active & (remaining == cfg.max_bounces)
+        z = torch.where(is_primary, r["z_val"], z)
+
+        # refraction first, so that reflection is popped first (the
+        # reference's depth-first order)
+        pre = st.count
+        st = _stack_push(st, r["push_refr"], r["hit_pt"], r["refr_d"],
+                         r["refr_kt"], remaining - 1, r["gid"])
+        st = _stack_push(st, r["push_refl"], r["hit_pt"], r["refl_d"],
+                         r["refl_kr"], remaining - 1, no_inside)
+        n_hit = r["active_hit"].sum(dtype=torch.float64)
+        n_primary_hit = (r["active_hit"] & is_primary).sum(
+            dtype=torch.float64)
+        pushed = (st.count - pre).sum(dtype=torch.float64)
+        wanted = (r["push_refr"].sum(dtype=torch.float64)
+                  + r["push_refl"].sum(dtype=torch.float64))
+        stats[0] += active.sum(dtype=torch.float64)
+        stats[1] += n_hit * sh_w
+        stats[2] += n_hit * gi_s + n_primary_hit * (gi_p - gi_s)
+        stats[3] += pushed
+        stats[4] += wanted - pushed
+        stats[5] = torch.maximum(stats[5],
+                                 r["shadow_spill"].to(torch.float64))
+        stats[6] = torch.maximum(stats[6], r["visit_spill"].to(torch.float64))
+    return _finish(color, z, stats, with_stats)
+
+
 def _finish(color: V3, z, stats, with_stats):
     color = v3m.to_aos(color)
     if with_stats:
@@ -153,19 +294,18 @@ def _finish(color: V3, z, stats, with_stats):
 
 def render_wavefront(ix, static: T.SceneStatic, cfg: RenderConfig, key, o,
                      d, *, with_stats=False):
-    """Render one tile of primary rays.
+    """Render one tile of primary rays: the stack integrator when a
+    material is transparent, the chain otherwise.
 
     ``ix`` is the frame's intersector (``accel.intersect.make_intersector``);
     o, d: (P, 3) primary origins/directions; ``key`` a ``rng.SampleKey``
     naming the tile.  Returns (color (P, 3), zbuffer (P,)) and, with
     ``with_stats``, a dict of ray counts (0-d float64 tensors) under the
     JAX package's keys."""
-    if any(static.is_transparent):
-        raise NotImplementedError(
-            "transparent materials need the stack integrator, which is not "
-            "ported yet (ROADMAP: the stack integrator)")
     if cfg.gi_model != GI_AMBIENT:
         raise NotImplementedError(
             f"gi_model={cfg.gi_model!r} is not ported yet (ROADMAP: path GI)")
-    return _render_chain(ix, static, cfg, key, v3m.from_aos(o),
-                         v3m.from_aos(d), with_stats=with_stats)
+    # the stackless chain where refraction cannot fire: the same frame
+    render = _render_stack if any(static.is_transparent) else _render_chain
+    return render(ix, static, cfg, key, v3m.from_aos(o), v3m.from_aos(d),
+                  with_stats=with_stats)

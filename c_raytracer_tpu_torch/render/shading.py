@@ -1,6 +1,7 @@
-"""Lighting model, opaque part, as in ``c_raytracer_tpu.render.shading``:
-emission, soft-shadow direct lighting from sphere and triangle emitters,
-Phong/Blinn specular and attenuation (render.c:158-229, 291-314).
+"""Lighting model, as in ``c_raytracer_tpu.render.shading``: emission,
+soft-shadow direct lighting from sphere and triangle emitters, Phong/Blinn
+specular, attenuation (render.c:158-229, 291-314) and the refraction
+direction (render.c:319-337).
 
 The reference's idiosyncrasies are kept (SURVEY.md §3.5): direct light only
 on outside hits, blocked samples contribute nothing, light attenuation
@@ -17,7 +18,7 @@ emitter it can serve (``fused_eligible``) — the JAX package's
 ``fused_shadow`` opt-in does not apply here.  Every other emitter takes the
 chunk loop of the JAX package's non-fused branch: occlusion from the
 intersector's shared-origin sweep (``shadow_query``, cluster scenes) or
-from one ``any_tint`` query per chunk, then shading.  Each chunk's uniforms
+from one ``any_counts`` query per chunk, then shading.  Each chunk's uniforms
 are drawn once, under the path ``(tile, round, emitter, chunk)``, and serve
 both the occlusion and the shading.
 
@@ -68,6 +69,39 @@ def attenuate_segment(cfg: RenderConfig, color: V3, t) -> V3:
 def reflect_dir(d: V3, n: V3, b) -> V3:
     """Mirror direction: d − 2(n·d)n (render.c:313-314)."""
     return d - n * (2.0 * b)
+
+
+def refract_dir(d: V3, n: V3, b, is_outside, ior):
+    """Snell rotation in the plane of incidence (render.c:324-337).
+
+    Returns (direction, valid).  The reference makes NaN directions on
+    total internal reflection and at exactly normal incidence; those lanes
+    are marked invalid instead, and the arithmetic stays NaN-free so that
+    gradients stay finite: ``|b|`` is clamped below 1, and each of arccos
+    and arcsin sits in a double ``where`` (a single one would send the
+    masked lanes' infinite slope, times a zero cotangent, into NaN)."""
+    ab = torch.abs(b)
+    interior = ab < 1.0
+    incident = torch.where(interior,
+                           torch.arccos(torch.where(interior, ab, 0.5)), 0.0)
+    ratio = torch.where(is_outside, 1.0 / ior, ior)
+    sin_r = torch.sin(incident) * ratio
+    tir = torch.abs(sin_r) > 1.0
+    sin_interior = torch.abs(sin_r) < 1.0
+    refracted = torch.where(
+        sin_interior, torch.arcsin(torch.where(sin_interior, sin_r, 0.5)),
+        torch.where(sin_r > 0, PI / 2, -PI / 2))
+    delta = refracted - incident
+    cr = v3m.cross(d, n)
+    m = v3m.safe_mag(cr)
+    degenerate = m == 0.0
+    c = cr * (1.0 / torch.where(degenerate, 1.0, m))
+    c = v3m.where(is_outside, c, -c)
+    f = v3m.cross(c, d)
+    out = d * torch.cos(delta) + f * torch.sin(delta)
+    om = v3m.safe_mag(out)
+    out = out * (1.0 / torch.where(om == 0.0, 1.0, om))
+    return out, ~(tir | degenerate)
 
 
 def _sphere_light_point_from_u(u, center: V3, radius, hit_pt: V3):
@@ -173,15 +207,16 @@ def _fused_emitter(ds, static, cfg, ekey, egid, num_lights, lc, nchunks,
 
 def _shade_chunk(ix, static, cfg, ckey, egid, real, intensity: V3,
                  hit_pt: V3, nrm_b: V3, rd_b: V3, tex_col: V3, ksv: V3,
-                 shin, blocked, drawn):
+                 shin, blocked, counts, drawn):
     """One chunk of the non-fused route: its samples' occlusion and
     shading.  ``real`` (lc, P) marks the sample lanes that count (shaded
     pixels, samples below num_lights); ``nrm_b``, ``rd_b`` are the normal
-    and ray direction broadcast to (1, P); ``blocked`` is the chunk's
-    occlusion mask from the shared sweep, or None for a per-chunk
-    ``any_tint`` query; ``drawn`` the chunk's (ldir, ldist) when the caller
-    drew them, else None and the draw is made here.  Returns (V3 (P,) sum
-    over the chunk's samples, the per-ray sweep's spill or None)."""
+    and ray direction broadcast to (1, P); ``blocked`` and ``counts`` are
+    the chunk's occlusion mask and blocker counts (None in an opaque
+    scene) from the shared sweep, or None for a per-chunk ``any_counts``
+    query; ``drawn`` the chunk's (ldir, ldist) when the caller drew them,
+    else None and the draw is made here.  Returns (V3 (P,) sum over the
+    chunk's samples, the per-ray sweep's spill or None)."""
     if drawn is None:
         drawn = _light_dirs(ix.ds, static, ckey, egid, hit_pt, real.shape[0])
     ldir, ldist = drawn
@@ -190,13 +225,16 @@ def _shade_chunk(ix, static, cfg, ckey, egid, real, intensity: V3,
     if blocked is None:
         def sweep():
             # the per_ray sweep's truncation guard, over real sample lanes
-            # of shaded pixels only; opaque scenes carry no tint
-            b, _, qspill = ix.any_tint(hit_pt.map(lambda x: x[None]), ldir,
-                                       ldist, egid, with_spill=True)
-            return b, torch.where(real, qspill, 0).max()
-        blocked, spill = remat.saved_occlusion(ix.saved_occlusion,
-                                               ckey.path, sweep)
+            # of shaded pixels only
+            b, cnt, qspill = ix.any_counts(hit_pt.map(lambda x: x[None]),
+                                           ldir, ldist, egid,
+                                           with_spill=True)
+            return b, cnt, torch.where(real, qspill, 0).max()
+        blocked, counts, spill = remat.saved_occlusion(ix.saved_occlusion,
+                                                       ckey.path, sweep)
 
+    if counts is not None:   # transparent blockers tint the light
+        intensity = intensity * ix.tint(counts)
     incoming = attenuate_light(cfg, intensity, ldist)
     if cfg.reflection_model == REFLECTION_PHONG:
         reflected = nrm_b * (2.0 * a) - ldir
@@ -217,16 +255,17 @@ def _shade_chunk(ix, static, cfg, ckey, egid, real, intensity: V3,
 def direct_light(ix, static: T.SceneStatic, cfg: RenderConfig, key,
                  hit_pt: V3, normal: V3, ray_d: V3, gid, mat, is_outside,
                  tex_col: V3, active):
-    """Soft-shadow direct lighting over all emitters (render.c:170-229) of
-    an opaque scene.
+    """Soft-shadow direct lighting over all emitters (render.c:170-229).
 
-    Per emitter: ke/num_lights intensity per sample, num_lights samples in
-    chunks of ``cfg.light_chunk``, each chunk's (lc, P) uniforms drawn from
+    Per emitter: ke/num_lights intensity per sample, tinted by the kt of
+    the transparent blockers, num_lights samples in chunks of
+    ``cfg.light_chunk``, each chunk's (lc, P) uniforms drawn from
     ``key.fold_in(emitter).fold_in(chunk)``.  All per-lane inputs are (P,).
-    Returns (V3 (P,) summed contribution, shadow_spill): the worst in-range
-    visit truncation of the per-chunk cluster queries (shadow_mode
-    "per_ray") over the real sample lanes of shaded pixels, a 0-d int
-    tensor; 0 where the sweep cannot truncate (dense, shared capsule)."""
+    Returns (V3 (P,) summed contribution, shadow_spill, a 0-d int tensor):
+    the worst visit truncation of the union lists (over all pixels, as the
+    JAX package counts it) and of the per-chunk cluster queries
+    (shadow_mode "per_ray", in range, over the real sample lanes of shaded
+    pixels); 0 where the sweep cannot truncate (dense, shared capsule)."""
     ds = ix.ds
     dev = hit_pt.x.device
     P = hit_pt.x.shape[0]
@@ -253,7 +292,7 @@ def direct_light(ix, static: T.SceneStatic, cfg: RenderConfig, key,
         inv_nl = float(np.float32(1.0) / np.float32(num_lights))
         intensity = v3m.splat(ds.materials.ke[e_mat] * inv_nl)
 
-        blocked_all = dirs = None
+        blocked_all = counts_all = dirs = None
         if ix.use_shared_shadows:
             # shared-origin sweep: every chunk's occlusion in one pass with
             # per-pixel visit lists; the draws, made once here, serve the
@@ -261,12 +300,14 @@ def direct_light(ix, static: T.SceneStatic, cfg: RenderConfig, key,
             dirs = [_light_dirs(ds, static, ekey.fold_in(c), egid, hit_pt,
                                 lc) for c in range(nchunks)]
 
-            def sweep(_egid=egid, _dirs=dirs, _nc=nchunks, _lc=lc):
+            def sweep(_egid=egid, _dirs=dirs, _nc=nchunks, _lc=lc,
+                      _live=shaded):
                 elo, ehi = ix.emitter_bounds(_egid)
                 return ix.shadow_query(hit_pt, elo, ehi, _dirs.__getitem__,
-                                       _egid, _nc, _lc)[0]
-            blocked_all = remat.saved_occlusion(ix.saved_occlusion,
-                                                ekey.path, sweep)
+                                       _egid, _nc, _lc, live=_live)
+            blocked_all, counts_all, sp = remat.saved_occlusion(
+                ix.saved_occlusion, ekey.path, sweep)
+            spill_max = torch.maximum(spill_max, sp)
 
         lane_idx = torch.arange(lc, device=dev)[:, None]
         nrm_b = normal.map(lambda a: a[None])
@@ -278,6 +319,7 @@ def direct_light(ix, static: T.SceneStatic, cfg: RenderConfig, key,
                 cfg, _shade_chunk, ix, static, cfg, ekey.fold_in(chunk_i),
                 egid, real, intensity, hit_pt, nrm_b, rd_b, tex_col, ksv,
                 shin, None if dirs is None else blocked_all[chunk_i],
+                None if counts_all is None else counts_all[chunk_i],
                 None if dirs is None else dirs[chunk_i])
             total = total + contrib
             if sp is not None:

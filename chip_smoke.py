@@ -18,10 +18,17 @@ bound, kernel 2's backward included.  Phases 11-13 take gradients: card
 against CPU grads of every SceneParams leaf on small dense and mesh frames
 (11), then a forward+backward step of each main path, the dense stand-in
 at 1024x1024 (12, with the peak memory of the step without
-rematerialisation) and the mesh stand-in at 512x512 (13).  Each phase
-prints one line or a few; any failed check raises, so the script exits
-non-zero and prints no result.  The last two lines are the kernels' JSON
-summary and the run's result line.
+rematerialisation) and the mesh stand-in at 512x512 (13).  Phases 14-18
+drive the stack integrator of transparent scenes: kernel 3 at the glass
+stand-in's shapes with lists of 64, 128 and 256 (14); small glass and
+scenes/example.json frames, card against CPU (15); the glass stand-in
+(scenes/meshes_glass.json, the dragon in glass, union shadows) at 64x64
+under RenderConfig(), with 100 and 300 light samples (16);
+scenes/example.json at 1024x1024 (17); a forward+backward step of the
+glass stand-in at 64x64 and card against CPU grads of a 16x16 glass frame
+(18).  Each phase prints one line or a few; any failed check raises, so
+the script exits non-zero and prints no result.  The last two lines are
+the kernels' JSON summary and the run's result line.
 
 Kernel times: ``device ms`` is the CUDA kernel time that torch.profiler
 records over 50 launches, divided by the launches it recorded (phase 10
@@ -62,6 +69,10 @@ SCENE = "scenes/spheres_opaque.json"
 MESH_SCENE = "scenes/meshes_opaque.json"
 MESH_RES = 512
 MESH_TILE = 2048      # the auto tile of a cluster scene
+GLASS_SCENE = "scenes/meshes_glass.json"
+GLASS_RES = 64
+EXAMPLE_SCENE = "scenes/example.json"
+GLASS_LISTS = (64, 128, 256)   # kernel 3's list sizes on the glass path
 KAT = {  # Random123 philox4x32_10, counter 0, key 0
     "ctr0_key0": (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)}
 COMBOS = [(phong, att) for phong in (True, False)
@@ -91,8 +102,13 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+_START = time.perf_counter()
+
+
 def phase(n: int, msg: str) -> None:
-    print(f"[phase {n}] {msg}", flush=True)
+    """One result line, with the seconds since the script started."""
+    print(f"[phase {n}] [{time.perf_counter() - _START:.0f} s] {msg}",
+          flush=True)
 
 
 def issue_ms(fn, reps: int = 20) -> float:
@@ -115,9 +131,11 @@ def device_ms(fn, n: int = 50, tries: int = 3) -> float:
     torch.profiler: for a call that launches one kernel, that kernel's
     recorded time over its recorded count (the profiler may drop the first
     few records of a run); for a plain version of many kernels, their
-    recorded time over n.  A profile that came back with fewer than 4/5 of
-    the records (now and then it holds none) is taken again, up to
-    ``tries`` profiles in all."""
+    recorded time over n.  A profile that came back with too few records
+    (now and then it holds none; of a kernel of 0.2 ms or more it may keep
+    only the last dozen launches) is taken again, up to ``tries`` profiles
+    in all: a one-kernel call needs 1/5 of its launches, whose mean it
+    takes, a plain version of many kernels 4/5, as it divides by n."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, tries + 1):
@@ -132,7 +150,8 @@ def device_ms(fn, n: int = 50, tries: int = 3) -> float:
         count = sum(e.count for e in kernels)
         what = (f"torch.profiler recorded {us} us over "
                 f"{[(e.key[:60], e.count) for e in kernels]}")
-        if us > 0 and count >= n * 4 // 5:
+        enough = n // 5 if len(kernels) == 1 else n * 4 // 5
+        if us > 0 and count >= enough:
             return us / (count if len(kernels) == 1 else n) / 1e3
         print(f"[phase 10] profile {attempt} of {tries}: {what}", flush=True)
     check(False, what)
@@ -287,18 +306,19 @@ def aimed_rays(lo, hi, R: int, gen):
     return o, d / d.norm(dim=1, keepdim=True)
 
 
-def frames_agree(a, b, what: str) -> tuple[float, float]:
+def frames_agree(a, b, what: str, share: float = 0.999) -> tuple[float,
+                                                                  float]:
     """Card frame ``a`` against CPU frame ``b`` (image, z, stats): equal ray
-    counts and spill maxima, >= 0.999 of pixels within 1e-4·max in image
-    and z.  Returns the two fractions."""
+    counts and spill maxima, >= ``share`` of pixels within 1e-4·max in
+    image and z.  Returns the two fractions."""
     (gi, gz, gs), (ci, cz, cs) = a, b
     for k in ("main_rays", "shadow_rays", "shadow_spill_max",
               "visit_spill_max"):
         check(gs[k] == cs[k], f"{what} {k}: card {gs[k]} cpu {cs[k]}")
     pix = ((gi - ci).abs().amax(-1) <= 1e-4 * ci.max()).float().mean().item()
     zok = ((gz - cz).abs() <= 1e-4 * cz.max()).float().mean().item()
-    check(pix >= 0.999, f"{what} image: {pix:.5f} of pixels within 1e-4·max")
-    check(zok >= 0.999, f"{what} z: {zok:.5f} of pixels within 1e-4·max")
+    check(pix >= share, f"{what} image: {pix:.5f} of pixels within 1e-4·max")
+    check(zok >= share, f"{what} z: {zok:.5f} of pixels within 1e-4·max")
     return pix, zok
 
 
@@ -411,6 +431,13 @@ def time_fwd_bwd(render, params, device, seed, launch_fns):
               for _, x in named), "fwd+bwd grads nonzero")
     return (secs, {k: float(v) for k, v in st.items()}, launches,
             torch.cuda.max_memory_allocated(device), named)
+
+
+def with_lights(sc, n: int):
+    """The scene's static with every emitter at ``n`` light samples."""
+    import dataclasses
+    return dataclasses.replace(sc.static, num_lights=tuple(
+        n if k else 0 for k in sc.static.num_lights))
 
 
 def check_frame(img, z, res, what: str) -> None:
@@ -824,6 +851,171 @@ def main() -> int:
                                "mesh": mlaunch_b.get(name, 0)}
                         for name in per_frame}
 
+    # -- phase 14: kernel 3 on the glass path, lists of 64, 128, 256 -------
+    gsc = reorder_scene(load_scene(GLASS_SCENE))
+    gcfg = RenderConfig()
+    # (the closest-hit calls do not depend on the light samples' count)
+    gcalls, _ = record_mesh_calls(with_lights(gsc, 20), gsc.params, gcfg,
+                                  GLASS_RES, GLASS_RES, dev, args.seed)
+    g_lo, g_hi = gcalls[0][2], gcalls[0][3]
+    gK = g_lo.shape[0]
+    check(gK == 6300 and gcalls[0][4] == 64 and all(
+        c[0].shape[0] == MESH_TILE and c[4] == 64 for c in gcalls),
+        f"glass stand-in: K={gK}, calls {[(c[0].shape[0], c[4]) for c in gcalls]}")
+    # the first round's rays and the rays of the round that spills most
+    # (deep inside the glass)
+    spills = [int(pallas_visit.visit_order_reference(*c)[2].max())
+              for c in gcalls]
+    deep = gcalls[max(range(len(gcalls)), key=spills.__getitem__)]
+    glass_rec = {}
+    for v in GLASS_LISTS:
+        if v == 64:
+            n_launch = None       # the main path's count, phase 16
+        else:
+            # a frame at this budget (20 light samples: the closest-hit
+            # calls do not depend on the count) for its launches a frame
+            pallas_visit.visit_order.launches = 0
+            make_renderer(with_lights(gsc, 20), RenderConfig(bvh_visits=v),
+                          GLASS_RES, GLASS_RES, device=dev)(
+                gsc.params, rng.PhiloxSampler(args.seed, dev))
+            torch.cuda.synchronize()
+            n_launch = pallas_visit.visit_order.launches
+        errs, oks = [], []
+        for co, cd in ((gcalls[0][0], gcalls[0][1]), (deep[0], deep[1])):
+            n_ok, sp, err = compare_visit(co, cd, g_lo, g_hi, v)
+            errs.append(err)
+            oks.append((n_ok, sp))
+        co, cd = gcalls[0][0], gcalls[0][1]
+        live = int((torch.isfinite(co).all(1) & torch.isfinite(cd).all(1))
+                   .sum())
+
+        def run(co=co, cd=cd, v=v):
+            return pallas_visit.visit_order(co, cd, g_lo, g_hi, v)
+        rec = time_line(
+            f"visit order glass first round R={MESH_TILE} K={gK} V={v}",
+            [device_ms(run), device_ms(run)],
+            bound_ms(4 * (6 * MESH_TILE + 6 * gK + 2 * MESH_TILE * v
+                          + MESH_TILE), VISIT_OPS_PER_BOX * live * gK),
+            split=str(pallas_visit.visit_split(MESH_TILE, gK, v, n_sm)))
+        rec["deep_device_ms"] = device_ms(
+            lambda v=v: pallas_visit.visit_order(deep[0], deep[1], g_lo,
+                                                 g_hi, v))
+        rec["plain_ms"] = device_ms(
+            lambda v=v: pallas_visit.visit_order_reference(co, cd, g_lo,
+                                                           g_hi, v), 10)
+        rec.update(max_abs_err=max(errs), launches_per_frame=n_launch,
+                   ok_and_spill=oks)
+        glass_rec[v] = rec
+    phase(14, f"visit-order kernel bit-equal to plain on the glass path, "
+              f"R={MESH_TILE} K={gK}, first and deepest round (spill "
+              f"{max(spills)}), V=64/128/256 (ok slots, spill max): "
+              f"{ {v: r['ok_and_spill'] for v, r in glass_rec.items()} }; "
+              f"deep round device ms "
+              f"{ {v: round(r['deep_device_ms'], 6) for v, r in glass_rec.items()} }; "
+              f"plain ms { {v: round(r['plain_ms'], 6) for v, r in glass_rec.items()} }; "
+              f"launches a frame at bvh_visits=128/256 "
+              f"{ {v: r['launches_per_frame'] for v, r in glass_rec.items()} }")
+
+    # -- phase 15: transparent frames on the card against the CPU ----------
+    agree = {}
+    ex_sc = load_scene(EXAMPLE_SCENE)
+    for what, (fstatic, fparams, fcfg, res) in {
+            "glass 32x32 (2 bounces, 20 lights)": (
+                with_lights(gsc, 20), gsc.params,
+                RenderConfig(max_bounces=2), 32),
+            "example.json 64x64 (3 bounces)": (
+                ex_sc.static, ex_sc.params, RenderConfig(max_bounces=3),
+                64)}.items():
+        fr = [render_on(d, fstatic, fparams, fcfg, res, args.seed)
+              for d in (dev, torch.device("cpu"))]
+        for k in ("children_pushed", "dropped"):
+            check(fr[0][2][k] == fr[1][2][k],
+                  f"{what} {k}: card {fr[0][2][k]} cpu {fr[1][2][k]}")
+        check_frame(fr[0][0], fr[0][1], res, what)
+        # a refracted ray bends by the ulp differences of arcsin, arccos,
+        # sin and cos between the card's and the CPU's libraries, and a
+        # light sample grazing a silhouette then flips: 0.99 of pixels, as
+        # the CPU tests hold the port against JAX on refraction frames
+        agree[what] = frames_agree(*fr, what, share=0.99) + (fr[0][2],)
+    phase(15, "card vs CPU, stats equal (rays, children, drops, spill "
+              "maxima); (image, z) share of pixels within 1e-4·max, card "
+              f"stats: {agree}")
+
+    # -- phase 16: the glass stand-in at 64x64 -----------------------------
+    grender = make_renderer(gsc.static, gcfg, GLASS_RES, GLASS_RES,
+                            device=dev, with_stats=True)
+    glass_fns = {"philox_uniform": rng.philox_uniform,
+                 "visit_order": pallas_visit.visit_order}
+    img, z, gst, gsecs, glaunches, gpeak = time_frames(
+        grender, gsc.params, rng.PhiloxSampler(args.seed, dev), dev,
+        glass_fns)
+    check(all(n > 0 for n in glaunches.values()), f"launches {glaunches}")
+    check_frame(img, z, GLASS_RES, "glass main path")
+    check(gst["children_pushed"] > 0 and gst["main_rays"] > GLASS_RES ** 2,
+          f"glass stack rays {gst}")
+    glass_rec[64]["launches_per_frame"] = glaunches["visit_order"] / 3
+    grays = gst["main_rays"] + gst["shadow_rays"] + gst["gi_rays"]
+    gframe_s = mean(gsecs)
+    phase(16, f"{GLASS_RES}x{GLASS_RES} glass stand-in, RenderConfig(), 100 "
+              f"lights: frame s {[round(x, 6) for x in gsecs]} mean "
+              f"{gframe_s:.6f}; {grays / GLASS_RES ** 2:.2f} rays/px; "
+              f"{grays / gframe_s:.6e} rays/s; peak {gpeak / 2**20:.1f} MiB; "
+              f"launches {glaunches}; stats {gst}")
+    g300 = make_renderer(with_lights(gsc, 300), gcfg, GLASS_RES, GLASS_RES,
+                         device=dev, with_stats=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, st300 = g300(gsc.params, rng.PhiloxSampler(args.seed, dev))
+    torch.cuda.synchronize()
+    s300 = time.perf_counter() - t0
+    rays300 = float(st300["main_rays"] + st300["shadow_rays"])
+    phase(16, f"300 lights, one frame (no warm-up at this shape): s "
+              f"{s300:.6f}; {rays300 / s300:.6e} rays/s; spill max shadow "
+              f"{float(st300['shadow_spill_max']):.0f} visit "
+              f"{float(st300['visit_spill_max']):.0f}")
+    del g300
+
+    # -- phase 17: scenes/example.json at 1024x1024 ------------------------
+    erender = make_renderer(ex_sc.static, cfg, 1024, 1024, device=dev,
+                            with_stats=True)
+    img, z, est, esecs, elaunches, epeak = time_frames(
+        erender, ex_sc.params, rng.PhiloxSampler(args.seed, dev), dev,
+        {"philox_uniform": rng.philox_uniform})
+    check(elaunches["philox_uniform"] > 0, f"launches {elaunches}")
+    check_frame(img, z, 1024, "example.json 1024")
+    erays = est["main_rays"] + est["shadow_rays"] + est["gi_rays"]
+    phase(17, f"1024x1024 scenes/example.json, RenderConfig(): frame s "
+              f"{[round(x, 6) for x in esecs]} mean {mean(esecs):.6f}; "
+              f"{erays / 2**20:.2f} rays/px; {erays / mean(esecs):.6e} "
+              f"rays/s; peak {epeak / 2**20:.1f} MiB; launches {elaunches}; "
+              f"children {est['children_pushed']:.0f}")
+    del erender
+
+    # -- phase 18: glass forward+backward, and card vs CPU grads ----------
+    gsecs_b, gst_b, glaunch_b, gpeak_b, _ = time_fwd_bwd(
+        grender, gsc.params, dev, args.seed, glass_fns)
+    grays_b = gst_b["main_rays"] + gst_b["shadow_rays"]
+    phase(18, f"{GLASS_RES}x{GLASS_RES} glass stand-in, RenderConfig(), "
+              f"mean(img²) over every leaf: fwd+bwd s {gsecs_b:.6f}; "
+              f"{grays_b / gsecs_b:.6e} rays/s (the forward's rays); "
+              f"{gsecs_b / gframe_s:.3f}x phase 16's forward; peak "
+              f"{gpeak_b / 2**20:.1f} MiB; launches {glaunch_b}")
+    w = torch.rand((16, 16, 3), generator=gen_w)
+    wz = torch.rand((16, 16), generator=gen_w) * 0.01
+    gstatic = with_lights(gsc, 20)
+    gcfg16 = RenderConfig(max_bounces=3)
+    card = frame_grads(gstatic, gsc.params, gcfg16, 16, 16, dev, args.seed,
+                       w, wz)
+    cpu = frame_grads(gstatic, gsc.params, gcfg16, 16, 16,
+                      torch.device("cpu"), args.seed, w, wz)
+    check(card["materials.kt"].abs().max() > 0
+          and card["materials.refractive_index"].abs().max() > 0,
+          "glass grads reach kt and the refractive index")
+    worst_g = grads_agree(card, cpu, "glass 16x16")
+    phase(18, f"card vs CPU grads, glass 16x16 (3 bounces, 20 lights), "
+              f"every leaf finite and within tolerance; worst leaf "
+              f"{worst_g}")
+
     def row(name, source, replaces, n_launches, err, issue, library):
         head = times[name][0]
         return {"name": name, "route": "cuda", "source": source,
@@ -849,7 +1041,20 @@ def main() -> int:
         row("visit_order", "c_raytracer_tpu_torch/csrc/visit_order.cu",
             "c_raytracer_tpu/accel/pallas_visit.py:98",
             mlaunches["visit_order"], vo_err, vo_issue, None),
-    ]}), flush=True)
+    ] + [{
+        "name": f"visit_order[V={v}]", "route": "cuda",
+        "source": "c_raytracer_tpu_torch/csrc/visit_order.cu",
+        "replaces": "c_raytracer_tpu/accel/pallas_visit.py:98",
+        "launches": (glaunches["visit_order"] if v == 64
+                     else r["launches_per_frame"]),
+        "max_abs_err": r["max_abs_err"], "ms": r["device_ms"],
+        "device_ms": r["device_ms"], "deep_round_ms": r["deep_device_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "launches_per_frame": r["launches_per_frame"], "split": r["split"],
+        "path": ("glass stand-in 64x64, RenderConfig(), 3 frames" if v == 64
+                 else f"glass 64x64 at bvh_visits={v}, one frame")}
+        for v, r in glass_rec.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -240,8 +240,19 @@ def test_closest_hit_clusters_matches_jax(dead_skip):
     np.testing.assert_array_equal(bn.numpy(), np.asarray(jn))
 
 
+def soup_tint(counts):
+    """The port's (..., 3) tint of blocker counts on the transparent soup,
+    the JAX package's tint product's counterpart."""
+    _, tsc = soup(True)
+    kt = torch.from_numpy(np.asarray(tsc.params.materials.kt))
+    return tv3.to_aos(TG.tint_from_counts(kt, TG.tint_slots(tsc.static),
+                                          counts))
+
+
 @pytest.mark.parametrize("transparent", [True, False])
 def test_any_hit_tint_clusters_matches_jax(transparent):
+    """The per-ray sweep: blocked equal; on the kt soup the port's blocker
+    counts give the JAX package's tint product within rtol 1e-6."""
     jcs, tcs = packs(transparent)
     o, d = rays(12, R)
     md = np.random.default_rng(13).uniform(0.5, 8, R).astype(np.float32)
@@ -251,15 +262,19 @@ def test_any_hit_tint_clusters_matches_jax(transparent):
     (jbl, jtn), jsp = JT.any_hit_tint_clusters(
         jcs, jnp.asarray(o), jnp.asarray(d), jnp.asarray(md),
         jnp.asarray(ex), jacc, visits=16, with_spill=True)
-    tacc = (torch.zeros(R, dtype=torch.bool), torch.ones(R, 3))
-    (bl, tn), sp = TT.any_hit_tint_clusters(
+    tacc = torch.zeros(R, dtype=torch.bool)
+    if transparent:
+        tacc = (tacc, torch.zeros((R, tcs.n_slots), dtype=torch.int16))
+    acc, sp = TT.any_hit_tint_clusters(
         tcs, t(o), t(d), t(md), t(ex).long(), tacc, visits=16,
         dead_skip=transparent, with_spill=True)
+    bl = acc[0] if transparent else acc
     np.testing.assert_array_equal(bl.numpy(), np.asarray(jbl))
-    np.testing.assert_allclose(tn.numpy(), np.asarray(jtn), rtol=1e-6)
     np.testing.assert_array_equal(sp.numpy(), np.asarray(jsp))
     if transparent:
-        assert (tn.numpy() < 1).any()
+        tn = soup_tint(acc[1]).numpy()
+        np.testing.assert_allclose(tn, np.asarray(jtn), rtol=1e-6)
+        assert (tn < 1).any() and acc[1].max() > 1
     else:
         assert bl.any() and not bl.all()
 
@@ -345,7 +360,8 @@ def test_shared_shadow_sweeps_match_jax(what):
         return
     if transparent:
         jacc0 = (jb0, jnp.ones((P, nchunks, lc, 3), jnp.float32))
-        tacc0 = (tb0, torch.ones((P, nchunks, lc, 3)))
+        tacc0 = (tb0, torch.zeros((P, nchunks, lc, tcs.n_slots),
+                                  dtype=torch.int16))
     else:
         jacc0, tacc0 = jb0, tb0
     jacc = JT.any_hit_tint_shared(jcs, jo, jc, jok, jf, nchunks, jacc0,
@@ -354,9 +370,9 @@ def test_shared_shadow_sweeps_match_jax(what):
                                  dead_skip=True)
     if transparent:
         np.testing.assert_array_equal(acc[0].numpy(), np.asarray(jacc[0]))
-        np.testing.assert_allclose(acc[1].numpy(), np.asarray(jacc[1]),
-                                   rtol=1e-6)
-        assert (acc[1].numpy() < 1).any()
+        tn = soup_tint(acc[1]).numpy()
+        np.testing.assert_allclose(tn, np.asarray(jacc[1]), rtol=1e-6)
+        assert (tn < 1).any()
     else:
         assert acc.any() and not acc.all()
         np.testing.assert_array_equal(acc.numpy(), np.asarray(jacc))
@@ -427,7 +443,9 @@ def test_intersector_closest_matches_jax(route):
     dict(accel="auto", shadow_mode="per_ray"),
 ])
 def test_intersector_any_tint_matches_jax(route):
-    """(lc, P) sample directions against (1, P) origins, kt soup."""
+    """(lc, P) sample directions against (1, P) origins, kt soup: blocked
+    and spill equal, the tint formed from the port's blocker counts within
+    rtol 1e-6 of the JAX package's tint product."""
     jix, tix = _intersectors(True, **route)
     o, d = rays(17, R)
     o = o[:75][None]                                  # (1, P, 3)
@@ -437,8 +455,9 @@ def test_intersector_any_tint_matches_jax(route):
     jb, jtn, jsp = jix.any_tint(jv3.from_aos(jnp.asarray(o)),
                                 jv3.from_aos(jnp.asarray(d)),
                                 jnp.asarray(md), 3, with_spill=True)
-    bl, tn, sp = tix.any_tint(tv3.from_aos(t(o)), tv3.from_aos(t(d)), t(md),
-                              3, with_spill=True)
+    bl, counts, sp = tix.any_counts(tv3.from_aos(t(o)), tv3.from_aos(t(d)),
+                                    t(md), 3, with_spill=True)
+    tn = tix.tint(counts)
     assert bl.shape == (4, 75)
     np.testing.assert_array_equal(bl.numpy(), np.asarray(jb))
     np.testing.assert_allclose(tv3.to_aos(tn).numpy(),
@@ -511,7 +530,8 @@ def test_plane_gid_follows_triangles():
     np.testing.assert_array_equal(bm.numpy(), np.asarray(jm))
     assert bm.tolist()[:4] == [1, 2, 3, 0]
     np.testing.assert_allclose(bt.numpy(), np.asarray(jt_), rtol=1e-6)
-    blocked, _ = TG.any_hit_tint_soa(tds, tsc.static, tv3.from_aos(t(o)),
-                                     tv3.from_aos(t(d)), torch.full((5,), 1e3),
-                                     torch.full((5,), 3))
+    blocked, _ = TG.any_hit_counts_soa(tds, tsc.static, tv3.from_aos(t(o)),
+                                       tv3.from_aos(t(d)),
+                                       torch.full((5,), 1e3),
+                                       torch.full((5,), 3))
     assert blocked.tolist() == [True, False, True, True, False]

@@ -20,8 +20,8 @@ cancellation noise on both sides, and is held at 1e-4 of the largest
 ``camera.position`` gradient.  (Measured: every other leaf within ~4e-6 of
 its scale.)  Each case also checks that the port's grads
 with ``remat`` on equal those with it off (exactly), and that the backward
-makes no occlusion query: ``Intersector.shadow_query`` and ``any_tint`` are
-not called during ``backward()``.
+makes no occlusion query: ``Intersector.shadow_query`` and ``any_counts``
+are not called during ``backward()``.
 
 Cases: the dense stand-in (kernel 2's route) with 12 light samples (lc 16,
 a tail chunk) and 3 bounces, Phong/sqr; the stand-in tiled and padded,
@@ -130,7 +130,7 @@ class CountQueries:
 
     def __init__(self, monkeypatch):
         self.calls = 0
-        for name in ("shadow_query", "any_tint"):
+        for name in ("shadow_query", "any_counts"):
             real = getattr(intersect.Intersector, name)
 
             def counted(*a, _real=real, **k):
@@ -188,11 +188,17 @@ CASES = {
 }
 
 
-def check_grads(case, monkeypatch):
-    """Case ``case`` of CASES: the port's grads against JAX's, remat on
-    against off, and no occlusion query in the backward."""
-    c = CASES[case]
-    if c["scene"] == "stand_in":
+def check_grads(case, monkeypatch, cases=CASES):
+    """Case ``case`` of ``cases``: the port's grads against JAX's, remat on
+    against off, and no occlusion query in the backward.  A case names its
+    scene, or gives ``scenes``, a function returning (JAX scene, port
+    scene)."""
+    c = cases[case]
+    if "scenes" in c:
+        jsc, sc = c["scenes"]()
+        jstatic, jparams, static, params = (jsc.static, jsc.params,
+                                            sc.static, sc.params)
+    elif c["scene"] == "stand_in":
         static, params = _stand_in(lights=c["lights"])
         jstatic, jparams = static, params
     else:
@@ -213,10 +219,12 @@ def check_grads(case, monkeypatch):
                           c["res"], key, w, wz, queries)
 
     assert bwd_q == 0, f"{bwd_q} occlusion queries in the backward"
-    if c["scene"] != "stand_in":
+    if c.get("scene") != "stand_in":
         assert fwd_q > 0          # the non-fused route queried occlusion
     jax_max = {name: float(np.abs(np.asarray(b)).max(initial=0.0))
                for name, b in named_leaves(g_jax)}
+    for name in c.get("live", ()):       # leaves the case is about
+        assert jax_max[name] > 0, f"{name}: no gradient in this case"
     nonzero = 0
     for (name, a), (_, b), (_, a_off) in zip(
             named_leaves(g), named_leaves(g_jax), named_leaves(g_off)):

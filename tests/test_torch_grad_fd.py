@@ -14,7 +14,11 @@ float32).
 
 Scenes: the dense stand-in (scenes/spheres_opaque.json, kernel 2's route)
 at 24² with 4 light samples and 3 bounces; the bumpy mesh of
-tests/test_torch_grad.py through the cluster route.
+tests/test_torch_grad.py through the cluster route; the glass sphere over a
+lit plane of tests/test_grad_mesh_refract.py through the stack integrator,
+whose ``refractive_index`` reaches the loss only through the Snell rotation
+and whose ``kt`` through the carried throughput and the shadow tint.  Its
+probes take that file's steps and gates.
 """
 
 import dataclasses
@@ -30,6 +34,7 @@ from c_raytracer_tpu_torch.scene import (grads_to_numpy, load_scene,
                                          make_scene, named_leaves,
                                          params_to_torch)
 from test_grad import _set, check_component
+from test_grad_mesh_refract import _glass_sphere_scene
 from test_torch_grad import bumpy_kwargs
 
 SCENE = os.path.join(os.path.dirname(__file__), "..", "scenes",
@@ -68,6 +73,37 @@ def mesh_setup():
     sc = make_scene(**bumpy_kwargs())
     cfg = RenderConfig(max_bounces=2, accel="cluster", light_chunk=8)
     loss, g = _setup(sc.static, sc.params, cfg, 5)
+    return sc.params, loss, g
+
+
+def glass_sphere_kwargs():
+    """make_scene arguments of tests/test_grad_mesh_refract.py's glass
+    sphere scene."""
+    return dict(
+        sphere_center=[[0.0, 0.0, 0.0], [1.5, 3.0, -2.0]],
+        sphere_radius=[1.0, 0.4],
+        sphere_material=[0, 2], sphere_lights=[0, 4],
+        plane_point=[[0, -2.0, 0]], plane_normal=[[0, 1, 0]],
+        plane_material=[1],
+        materials=[
+            dict(ks=[0.3, 0.3, 0.3], kt=[0.9, 0.85, 0.8], shininess=5.0,
+                 refractive_index=1.5, tex_color=[0, 0, 0]),
+            dict(ks=[0.2, 0.2, 0.2], ka=[0.4, 0.4, 0.4], shininess=2.0,
+                 tex_color=[0.8, 0.85, 0.9]),
+            dict(ke=[25.0, 25.0, 25.0], tex_color=[1, 1, 1]),
+        ],
+        camera=dict(position=[0.0, 0.3, -4.0], vector_x=[1, 0, 0],
+                    vector_y=[0, 1, 0.08], fov=55, focal_length=1),
+        ambient=(0.2, 0.2, 0.2))
+
+
+@pytest.fixture(scope="module")
+def glass_setup():
+    sc = make_scene(**glass_sphere_kwargs())
+    ref = _glass_sphere_scene()
+    assert dataclasses.asdict(sc.static) == dataclasses.asdict(ref.static)
+    cfg = RenderConfig(max_bounces=4, rounds=8, light_chunk=8)
+    loss, g = _setup(sc.static, sc.params, cfg, 7)
     return sc.params, loss, g
 
 
@@ -134,6 +170,28 @@ def test_mesh_vertex_fd(mesh_setup, ti, vi, ci):
     loss is small: the probed slopes are ~4e-4 and FD met them within 3e-6
     at this step on the CPU, hence the low floor."""
     _check(mesh_setup, "tri_vertices", (ti, vi, ci), 2.5e-4, 0.25, 2e-5)
+
+
+def test_glass_grads_finite_and_live(glass_setup):
+    """The refraction chain is live: without a refraction push the ior
+    gradient would be 0."""
+    _, _, g = glass_setup
+    for name, leaf in named_leaves(g):
+        assert np.all(np.isfinite(leaf)), name
+    assert abs(float(g.materials.refractive_index[0])) > 1e-3
+    assert np.abs(g.materials.kt[0]).min() > 1e-3
+
+
+@pytest.mark.parametrize("path,idx,eps,rtol", [
+    # TIR boundaries at the sphere's limb flip under perturbation; the
+    # refraction inside dominates the weighted loss
+    ("materials.refractive_index", 0, 1e-3, 0.25),
+    ("materials.kt", (0, 0), 1e-3, 0.15),
+    ("materials.kt", (0, 1), 1e-3, 0.15),
+    ("materials.kt", (0, 2), 1e-3, 0.15),
+])
+def test_glass_fd(glass_setup, path, idx, eps, rtol):
+    _check(glass_setup, path, idx, eps, rtol, 1e-3)
 
 
 def _check(setup, path, idx, eps, rtol, min_mag):

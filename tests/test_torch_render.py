@@ -119,27 +119,18 @@ def test_port_loader_renders_same_as_jax_params():
     torch.testing.assert_close(a[1], b[1], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("what", ["triangle", "transparent", "path_gi",
-                                  "remat_names"])
+@pytest.mark.parametrize("what", ["path_gi", "remat_names"])
 def test_outside_the_slice_raises(what):
     mats = [dict(ks=[0.5] * 3, ka=[0.1] * 3, kr=[0] * 3, kt=[0] * 3,
                  ke=[0] * 3, shininess=8.0, refractive_index=1.0,
                  tex_type=0, tex_color=[1, 1, 1]),
             dict(ke=[5, 5, 5], tex_type=0, tex_color=[1, 1, 1])]
-    if what == "transparent":
-        mats[0]["kt"] = [0.5] * 3
     cam = dict(position=[0, 0, -5], vector_x=[1, 0, 0], vector_y=[0, 1, 0],
                fov=60, focal_length=1)
-    tri = dict(tri_vertices=[[[0, 0, 0], [1, 0, 0], [0, 1, 0]]],
-               tri_material=[0]) if what == "triangle" else {}
     sc = make_scene(sphere_center=[[0, 0, 0], [0, 3, 0]],
                     sphere_radius=[1.0, 0.5], sphere_material=[0, 1],
-                    sphere_lights=[0, 8], materials=mats, camera=cam, **tri)
+                    sphere_lights=[0, 8], materials=mats, camera=cam)
     cfg = RenderConfig(gi_model="path" if what == "path_gi" else "ambient")
-    if what == "triangle":
-        # triangles render now; the union shadow mode of a cluster scene
-        # is still outside the slice
-        cfg = RenderConfig(accel="cluster", shadow_mode="union")
     with pytest.raises(NotImplementedError):
         if what == "remat_names":   # only the occlusion residual is ported
             cfg = RenderConfig(remat_names=("occlusion", "shade_terms"))

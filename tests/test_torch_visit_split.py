@@ -59,13 +59,14 @@ def merge(lists, cap):
     return out[:n]
 
 
-def kernel_model(o, d, lo, hi, V, count_max_dist=None):
+def kernel_model(o, d, lo, hi, V, count_max_dist=None, n_sm=PV.N_SM_H100):
     """(cids, entry, spill) as kernel 3 builds them under the wrapper's
-    split: per slice the first VM overlaps of its stable sort (the
-    register list) and its count; merge 1 over each block's warps to VM,
-    merge 2 over the cluster's blocks to V."""
+    split for a card of ``n_sm`` SMs: per slice the first VM overlaps of
+    its stable sort (the register or shared-memory list) and its count;
+    merge 1 over each block's warps to VM, merge 2 over the cluster's
+    blocks to V."""
     R, K = o.shape[0], lo.shape[0]
-    split = PV.visit_split(R, K, V)
+    split = PV.visit_split(R, K, V, n_sm)
     slices = split.slices(K)
     entry, overlap, live = slab(o, d, lo, hi)
     counted = overlap if count_max_dist is None else (
@@ -90,10 +91,10 @@ def kernel_model(o, d, lo, hi, V, count_max_dist=None):
     return cids, ent, spill
 
 
-def boxes(seed, K):
+def boxes(seed, K, half=(0.3, 1.5)):
     rng = np.random.default_rng(seed)
     c = rng.uniform(-4, 4, (K, 3)).astype(F32)
-    h = rng.uniform(0.3, 1.5, (K, 3)).astype(F32)
+    h = rng.uniform(*half, (K, 3)).astype(F32)
     return (c - h).astype(F32), (c + h).astype(F32)
 
 
@@ -110,12 +111,12 @@ def rays(seed, R, lo, hi):
     return o, d.astype(F32)
 
 
-def duplicate_at_boundaries(lo, hi, R, V):
+def duplicate_at_boundaries(lo, hi, R, V, n_sm=PV.N_SM_H100):
     """Copies of box 0 on both sides of every slice boundary of the
     (R, K, V) split, which block boundaries are too, and boxes holding
     every origin (entry 0 for every ray) around the first ones."""
     lo, hi = lo.copy(), hi.copy()
-    split = PV.visit_split(R, lo.shape[0], V)
+    split = PV.visit_split(R, lo.shape[0], V, n_sm)
     ends = [b for _, b in split.slices(lo.shape[0])[:-1]]
     for b in ends:
         if 2 <= b <= lo.shape[0] - 2:
@@ -159,11 +160,25 @@ def case(name):
         o[1, 0] = np.nan
         d[7, 2] = np.nan
         V = 16
+    elif name in ("V128", "V256", "ties_V256", "count_max_dist_V104"):
+        # the shared-memory lists: 1,200 large boxes, so that a ray
+        # overlaps more boxes than a warp's slice keeps
+        lo, hi = boxes(6, 1200, half=(1.5, 3.0))
+        o, d = rays(7, 64, lo, hi)
+        V = {"V128": 128, "count_max_dist_V104": 104}.get(name, 256)
+        if name == "ties_V256":
+            lo, hi = duplicate_at_boundaries(lo, hi, 64, V, N_SM[name])
+        if name == "count_max_dist_V104":
+            cmd = np.random.default_rng(8).uniform(0.5, 6, 64).astype(F32)
     return o, d, lo, hi, V, cmd
 
 
 CASES = ["random", "ties", "count_max_dist", "V1", "V64", "V=K",
-         "K<slices", "R45", "nan"]
+         "K<slices", "R45", "nan", "V128", "V256", "ties_V256",
+         "count_max_dist_V104"]
+# the shared-memory cases split as on a card of 2 SMs: one block a ray
+# group, whose warps' slices are long enough to overflow their lists
+N_SM = {"V128": 2, "V256": 2, "ties_V256": 2, "count_max_dist_V104": 2}
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -171,7 +186,8 @@ def test_kernel_model_equals_reference(name):
     """The numpy model of the kernel's split and merge against the plain
     version: exact equality (ok mask, spill, cids and entries on ok)."""
     o, d, lo, hi, V, cmd = case(name)
-    mc, me, ms = kernel_model(o, d, lo, hi, V, cmd)
+    n_sm = N_SM.get(name, PV.N_SM_H100)
+    mc, me, ms = kernel_model(o, d, lo, hi, V, cmd, n_sm)
     t = torch.from_numpy
     pc, pe, ps = PV.visit_order_reference(
         t(o), t(d), t(lo), t(hi), V, None if cmd is None else t(cmd))
@@ -182,9 +198,16 @@ def test_kernel_model_equals_reference(name):
     np.testing.assert_array_equal(mc[ok], pc[ok])
     np.testing.assert_array_equal(me[ok], pe[ok])
     assert ok.sum() > 0
-    if name in ("random", "count_max_dist", "ties", "V1"):
+    if name in ("random", "count_max_dist", "ties", "V1", "V128", "V256",
+                "ties_V256", "count_max_dist_V104"):
         assert ps.max() > 0               # the lists were truncated
-    if name == "ties":                    # the entry-0 boxes lead, id order
+    if name in ("V128", "V256", "ties_V256"):
+        # some warp slice held more overlaps than its list keeps
+        split = PV.visit_split(o.shape[0], lo.shape[0], V, n_sm)
+        _, overlap, _ = slab(o, d, lo, hi)
+        assert max(overlap[:, a:b].sum(1).max()
+                   for a, b in split.slices(lo.shape[0])) > split.vm
+    if name in ("ties", "ties_V256"):     # the entry-0 boxes lead, id order
         assert (pe[:, :4] == 0).all() and (np.diff(pc[:, :4]) > 0).all()
     if name == "nan":
         assert not ok[1].any() and not ok[7].any() and ps[1] == ps[7] == 0
@@ -193,14 +216,18 @@ def test_kernel_model_equals_reference(name):
 @pytest.mark.parametrize("R,K,V", [
     (2048, 8556, 16), (2048, 8556, 64), (300, 8556, 16), (4096, 8556, 64),
     (2048, 8553, 16), (2048, 1001, 8), (2048, 5, 5), (45, 200, 16),
-    (65536, 8556, 16), (1, 1, 1), (2048, 8556, 32), (2048, 8556, 1)])
+    (65536, 8556, 16), (1, 1, 1), (2048, 8556, 32), (2048, 8556, 1),
+    (2048, 6300, 64), (2048, 6300, 104), (2048, 6300, 128),
+    (2048, 6300, 256), (300, 1001, 200)])
 def test_split_covers_boxes_and_fits_the_card(R, K, V):
     """Slices cover [0, K) once, in id order, each starting at a multiple
     of 4 boxes (16-byte aligned copies); the grid holds every ray and fits
-    an H100: cluster <= 8 blocks, 4 or 8 warps a block (4 at VM = 64, whose
-    lists take twice the registers).  The block's dynamic shared memory is
-    the kernel's own layout; ``csrc/visit_order.cu`` holds it to 227 KB for
-    every list size at up to 16, 16, 8 and 4 warps with a static_assert."""
+    an H100: cluster <= 8 blocks, 2 to 8 warps a block (8 up to VM = 32, 4
+    at 64, whose register lists take twice the registers, and at 128; 2 at
+    256, whose shared-memory lists take 64 KB a warp).  The block's dynamic
+    shared memory is the kernel's own layout; ``csrc/visit_order.cu`` holds
+    it to 227 KB for every list size at its most warps with a
+    static_assert."""
     split = PV.visit_split(R, K, V)
     covered = [i for a, b in split.slices(K) for i in range(a, b)]
     assert covered == list(range(K))
@@ -209,14 +236,16 @@ def test_split_covers_boxes_and_fits_the_card(R, K, V):
     assert split.vm >= V and split.vm in PV.LIST_SIZES
     assert split.groups * PV.LANES >= R > (split.groups - 1) * PV.LANES
     assert 1 <= split.cluster <= PV.MAX_CLUSTER
-    assert split.warps == (4 if split.vm == 64 else 8)
+    assert split.warps == {8: 8, 16: 8, 32: 8, 64: 4, 128: 4,
+                           256: 2}[split.vm]
     if R == 2048:                        # a block on every SM of the card
         assert split.groups * split.cluster >= PV.N_SM_H100
 
 
 def test_split_refuses_what_the_kernel_does_not_take():
-    """V outside the compiled list sizes, 1..64."""
-    with pytest.raises(ValueError, match="V=65"):
-        PV.visit_split(2048, 8556, 65)
+    """V outside the compiled list sizes, 1..256: the card refuses it and
+    names the limit."""
+    with pytest.raises(ValueError, match="V=257 outside 1..256"):
+        PV.visit_split(2048, 8556, 257)
     with pytest.raises(ValueError, match="V=0"):
         PV.visit_split(2048, 8556, 0)
