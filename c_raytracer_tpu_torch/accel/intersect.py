@@ -280,12 +280,17 @@ class Intersector:
         dirs_fn(chunk_i) -> (ldir V3 (lc, P), ldist (lc, P)), the chunk's
         sample directions (drawn once by the caller).  Returns (blocked
         (nchunks, lc, P), counts, spill_max): counts (nchunks, lc, P,
-        n_slots) when the shadow clusters hold transparent triangles, else
-        None, as the JAX package drops its tint there; spill_max, a 0-d
+        n_slots) when a transparent material is among the shadow clusters'
+        triangles or the spheres and planes, else None; spill_max, a 0-d
         int32 tensor, the union lists' worst truncation over all P pixels
         (0 in "shared" mode, whose capsule list has no truncation guard).
         ``live`` (P,): in "union" mode, pixels whose result the caller
-        discards, which the sweep then skips."""
+        discards, which the sweep then skips.
+
+        The JAX package drops the sphere/plane pre-pass counts when the
+        shadow clusters hold no transparent triangle, so there a glass
+        sphere casts no shadow at all in the union and shared modes, while
+        its per-ray mode tints; the port keeps them in every mode."""
         scs = self._shadow_cs
         has_transp = scs.has_transp
 
@@ -308,15 +313,20 @@ class Intersector:
             return d, md, torch.full(md.shape, egid, device=md.device)
 
         origin_aos = v3m.to_aos(origin).contiguous()
+        # the pre-pass counts of transparent spheres and planes, kept
+        # beside an opaque cluster sweep's mask
+        pre_counts = None
         if has_transp:
             counts_pm = torch.stack(counts, 1).permute(2, 1, 0, 3)
             acc = (blocked_pm, counts_pm)            # (P, nc, lc[, slots])
         else:
             acc = blocked_pm
+            if counts[0] is not None:
+                pre_counts = torch.stack(counts, 0)   # (nc, lc, P, slots)
         if self.resolved_shadow_mode == "union":
             acc, spill_max = self._union_sweep(origin_aos, dirs, egid, acc,
                                                live)
-            return _query_out(acc, spill_max)
+            return _query_out(acc, spill_max, pre_counts)
         spill_max = torch.zeros((), dtype=torch.int32,
                                 device=origin_aos.device)
         cids, ok = traverse.shadow_visit_order(scs, origin_aos, emitter_lo,
@@ -336,7 +346,7 @@ class Intersector:
             acc = traverse.any_hit_tint_shared(
                 scs, origin_aos, cids, ok, cached_dirs, nchunks, acc,
                 dead_skip=self._dead_skip)
-        return _query_out(acc, spill_max)
+        return _query_out(acc, spill_max, pre_counts)
 
     @torch.no_grad()
     def emitter_bounds(self, egid: int):
@@ -373,11 +383,12 @@ def _cat(parts, dim):
     return torch.cat(parts, dim)
 
 
-def _query_out(acc, spill_max):
+def _query_out(acc, spill_max, pre_counts=None):
     """``shadow_query``'s result from its (P, nc, lc[, slots]) accumulator:
-    (blocked (nc, lc, P), counts (nc, lc, P, slots) or None, spill_max)."""
+    (blocked (nc, lc, P), counts (nc, lc, P, slots) or None, spill_max);
+    an opaque sweep's counts are the pre-pass's ``pre_counts``."""
     if not isinstance(acc, tuple):
-        return acc.permute(1, 2, 0), None, spill_max
+        return acc.permute(1, 2, 0), pre_counts, spill_max
     blocked, counts = acc
     return blocked.permute(1, 2, 0), counts.permute(1, 2, 0, 3), spill_max
 

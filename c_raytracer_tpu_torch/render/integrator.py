@@ -20,27 +20,36 @@ The intersector (and the cluster packs of a mesh scene) depends only on
 the scene parameters, so ``make_renderer`` builds it once per frame and
 hands it to every tile.
 
+Path-traced GI (``gi_model="path"``, render.c:238-287) shades each hit's
+hemisphere samples inline: a one-bounce trace and a basic shade a sample,
+``samples_per_pixel`` of them at primary hits and one at secondary hits.
+Its draws are keyed by their own sample paths beside the shading's
+``(tile, round, emitter, chunk)``: ``(tile, round, GI_TAG, sample, 0)`` for
+the direction and ``(tile, round, GI_TAG, sample, 1, emitter, chunk)`` for
+the child's light chunks, ``GI_TAG`` negative like no emitter index.
+
 Gradients: each round's trace + shade is a rematerialised region
 (core/remat.py), so across rounds a tile keeps only each round's inputs;
 the stats, the break, the stack and the z update stay outside it, and a
-recompute counts nothing twice.
-
-Not ported yet, and refused with ``NotImplementedError``: path-traced GI.
+recompute counts nothing twice.  Each GI sample is a region of its own
+inside its round's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from c_raytracer_tpu_torch.core import remat
 from c_raytracer_tpu_torch.core import v3 as v3m
 from c_raytracer_tpu_torch.core.v3 import V3
 from c_raytracer_tpu_torch.render import shading
-from c_raytracer_tpu_torch.render.config import GI_AMBIENT, GI_PATH, RenderConfig
+from c_raytracer_tpu_torch.render.config import GI_PATH, RenderConfig
 from c_raytracer_tpu_torch.scene import types as T
 
+GI_TAG = -1   # the GI draws' path element after (tile, round)
 STAT_KEYS = ("main_rays", "shadow_rays", "gi_rays", "children_pushed",
              "dropped", "shadow_spill_max", "visit_spill_max")
 
@@ -64,11 +73,87 @@ def _trace(ix, o: V3, d: V3, inside=None):
     return t, gid, mat, v3m.where(use_inside, ni, nc), sp
 
 
-def _round_shade(ix, static, cfg, k_shade, ro: V3, rd: V3, rkr: V3,
-                 remaining, active, inside=None):
-    """Trace + shade + child spawn for one round (ambient GI).
-    ``remaining`` is an int (chain: the same depth on every lane) or (P,);
-    ``inside`` (P,) turns on the stack's re-test and refraction children.
+def _gi_sample(ix, static, cfg, skey, hit_pt: V3, normal: V3, eps,
+               lane_ok, delta):
+    """One hemisphere sample of path GI at every lane: direction, a
+    one-bounce trace and a basic shade, weighted by delta·cos and the
+    child's own segment attenuation, zero where ``lane_ok`` is False or
+    the child misses.  Returns (colour V3 (P,), shadow spill, the lanes'
+    visit spill)."""
+    sdir, cos = shading.sample_hemisphere(skey.fold_in(0), normal, eps)
+    if torch.is_grad_enabled():
+        # a lane that takes no sample traces the padding's zero ray, as a
+        # dead chain does: its drifting child would meet 0·inf in the
+        # backward
+        hit_pt, sdir = (v3m.where(lane_ok, v, 0.0) for v in (hit_pt, sdir))
+    ct, cgid, cmat, cn, csp = _trace(ix, hit_pt, sdir)
+    child, caux = shading.shade_basic(ix, static, cfg, skey.fold_in(1),
+                                      hit_pt, sdir, ct, cgid, cmat, cn,
+                                      lane_ok)
+    child = shading.attenuate_segment(cfg, child * (delta * cos), ct)
+    child = v3m.where(lane_ok & (cgid >= 0), child, 0.0)
+    return child, caux["shadow_spill"], torch.where(lane_ok, csp, 0).max()
+
+
+def _may_skip(ix) -> bool:
+    """Whether a GI sample that no lane takes may be skipped: everywhere
+    but under union shadows, whose guard counts the lists of every lane,
+    the discarded ones too (as the JAX package does)."""
+    return not (ix.use_shared_shadows and ix.resolved_shadow_mode == "union")
+
+
+def _gi_path(ix, static, cfg, key, hit_pt: V3, normal: V3, gid, is_outside,
+             remaining, active_hit, primary_round: bool):
+    """Path-traced GI (render.c:238-287): ``samples_per_pixel`` hemisphere
+    samples at primary hits and one at secondary hits, each weighted by
+    δ·cosθ, δ = 1/spp at primaries and ``gi_chunk_weight`` at secondaries.
+
+    Sample ``i`` draws under ``key.fold_in(GI_TAG).fold_in(off + i)``,
+    ``off = gi_sample_offset``; a chunk with an offset runs its primary
+    lanes only, so that chunk renders evaluate disjoint ranges of one
+    sample set.  ``primary_round`` says whether any lane may be primary:
+    a sample that no lane can take is skipped where skipping cannot change
+    the stats (``_may_skip``).  Returns (colour V3 (P,), shadow spill, visit
+    spill)."""
+    dev = hit_pt.x.device
+    spp, off = cfg.samples_per_pixel, cfg.gi_sample_offset
+    is_primary = remaining == cfg.max_bounces
+    eps = ix.ds.prim_eps[gid.clamp(min=0)]
+    gi_active = active_hit & is_outside & (remaining > 0)
+    w_primary = float(np.float32(1.0) / np.float32(spp))
+    w_secondary = float(np.float32(cfg.gi_chunk_weight))
+    if isinstance(is_primary, bool):
+        delta = w_primary if is_primary else w_secondary
+    else:
+        delta = torch.where(is_primary, w_primary, w_secondary)
+    may_skip = _may_skip(ix)
+
+    acc = v3m.full(hit_pt.x.shape, 0.0, device=dev)
+    ss = torch.zeros((), dtype=torch.int32, device=dev)
+    vs = torch.zeros((), dtype=torch.int32, device=dev)
+    for i in range(max(spp, 1)):
+        # secondaries (one sample, i == 0) belong to the offset-0 chunk
+        only_primary = i > 0 or off != 0
+        if only_primary and may_skip and not primary_round:
+            continue
+        lane_ok = gi_active & (is_primary if only_primary else True)
+        child, c_ss, c_vs = remat.checkpoint(
+            cfg, _gi_sample, ix, static, cfg,
+            key.fold_in(GI_TAG).fold_in(off + i), hit_pt, normal, eps,
+            lane_ok, delta)
+        acc = acc + child
+        ss = torch.maximum(ss, c_ss)
+        vs = torch.maximum(vs, c_vs)
+    return acc, ss, vs
+
+
+def _round_shade(ix, static, cfg, key, ro: V3, rd: V3, rkr: V3, remaining,
+                 active, inside=None, primary_round=True):
+    """Trace + shade + child spawn for one round, drawing under the round's
+    ``key``.  ``remaining`` is an int (chain: the same depth on every
+    lane) or (P,); ``inside`` (P,) turns on the stack's re-test and
+    refraction children; ``primary_round`` whether any lane may be a
+    primary ray (path GI skips the samples of primaries otherwise).
     Returns a dict of per-lane results."""
     ds = ix.ds
     t, gid, mat, normal, tr_spill = _trace(ix, ro, rd, inside)
@@ -77,11 +162,19 @@ def _round_shade(ix, static, cfg, k_shade, ro: V3, rd: V3, rkr: V3,
     visit_spill = torch.where(active, tr_spill, 0).max()
 
     obj_color, aux = shading.shade_basic(
-        ix, static, cfg, k_shade, ro, rd, t, gid, mat, normal, active_hit)
+        ix, static, cfg, key, ro, rd, t, gid, mat, normal, active_hit)
+    shadow_spill = aux["shadow_spill"]
 
-    # ambient GI (render.c:232-236)
-    ambient = v3m.rows(ds.materials.ka, mat) * v3m.splat(ds.ambient)
-    obj_color = obj_color + v3m.where(active_hit, ambient, 0.0)
+    if cfg.gi_model == GI_PATH:
+        gi_color, gi_ss, gi_vs = _gi_path(
+            ix, static, cfg, key, aux["hit_pt"], normal, gid,
+            aux["is_outside"], remaining, active_hit, primary_round)
+        obj_color = obj_color + gi_color
+        shadow_spill = torch.maximum(shadow_spill, gi_ss)
+        visit_spill = torch.maximum(visit_spill, gi_vs)
+    else:   # ambient GI (render.c:232-236)
+        ambient = v3m.rows(ds.materials.ka, mat) * v3m.splat(ds.ambient)
+        obj_color = obj_color + v3m.where(active_hit, ambient, 0.0)
 
     # accumulate: kr ⊙ obj_color, per-segment attenuation (render.c:291-302)
     contrib = shading.attenuate_segment(cfg, rkr * obj_color, t)
@@ -101,7 +194,7 @@ def _round_shade(ix, static, cfg, k_shade, ro: V3, rd: V3, rkr: V3,
     out = dict(t=t, gid=gid, hit=hit, active_hit=active_hit,
                contrib=contrib, z_val=z_val, hit_pt=aux["hit_pt"],
                push_refl=push_refl, refl_d=refl_d, refl_kr=refl_kr,
-               visit_spill=visit_spill, shadow_spill=aux["shadow_spill"])
+               visit_spill=visit_spill, shadow_spill=shadow_spill)
     if inside is not None:
         refr_kt = rkr * v3m.rows(ds.materials.kt, mat)
         ior = ds.materials.refractive_index[mat]
@@ -147,7 +240,7 @@ def _render_chain(ix, static: T.SceneStatic, cfg: RenderConfig, key, o: V3,
         is_primary = remaining == cfg.max_bounces
         r = remat.checkpoint(cfg, _round_shade, ix, static, cfg,
                              key.fold_in(round_i), ro, rd, rkr, remaining,
-                             live)
+                             live, None, is_primary)
         color = color + r["contrib"]
         if is_primary:
             z = torch.where(live, r["z_val"], z)
@@ -254,9 +347,11 @@ def _render_stack(ix, static: T.SceneStatic, cfg: RenderConfig, key, o: V3,
         (ro, rd, rkr, remaining, inside), active, st = _stack_pop(st)
         if not bool(active.any()):
             break  # every stack is empty: the remaining rounds do no work
+        # every pixel's primary ray is popped in round 0, and every pushed
+        # ray is a secondary one
         r = remat.checkpoint(cfg, _round_shade, ix, static, cfg,
                              key.fold_in(round_i), ro, rd, rkr, remaining,
-                             active, inside)
+                             active, inside, round_i == 0)
         color = color + r["contrib"]
         is_primary = active & (remaining == cfg.max_bounces)
         z = torch.where(is_primary, r["z_val"], z)
@@ -302,9 +397,6 @@ def render_wavefront(ix, static: T.SceneStatic, cfg: RenderConfig, key, o,
     naming the tile.  Returns (color (P, 3), zbuffer (P,)) and, with
     ``with_stats``, a dict of ray counts (0-d float64 tensors) under the
     JAX package's keys."""
-    if cfg.gi_model != GI_AMBIENT:
-        raise NotImplementedError(
-            f"gi_model={cfg.gi_model!r} is not ported yet (ROADMAP: path GI)")
     # the stackless chain where refraction cannot fire: the same frame
     render = _render_stack if any(static.is_transparent) else _render_chain
     return render(ix, static, cfg, key, v3m.from_aos(o), v3m.from_aos(d),

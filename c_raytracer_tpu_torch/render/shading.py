@@ -1,7 +1,8 @@
 """Lighting model, as in ``c_raytracer_tpu.render.shading``: emission,
 soft-shadow direct lighting from sphere and triangle emitters, Phong/Blinn
-specular, attenuation (render.c:158-229, 291-314) and the refraction
-direction (render.c:319-337).
+specular, attenuation (render.c:158-229, 291-314), the refraction
+direction (render.c:319-337) and the path-GI hemisphere sample
+(render.c:238-283).
 
 The reference's idiosyncrasies are kept (SURVEY.md §3.5): direct light only
 on outside hits, blocked samples contribute nothing, light attenuation
@@ -102,6 +103,28 @@ def refract_dir(d: V3, n: V3, b, is_outside, ior):
     om = v3m.safe_mag(out)
     out = out * (1.0 / torch.where(om == 0.0, 1.0, om))
     return out, ~(tir | degenerate)
+
+
+def sample_hemisphere(key, normal: V3, eps):
+    """One path-GI direction per lane (render.c:281-283), drawn under
+    ``key`` as (2, P) uniforms and turned by the rotation that takes +Y to
+    the normal (render.c:240-268); where the normal points down, within
+    the hit object's epsilon ``eps`` (P,), the 180° X-flip takes its place.
+    The azimuth spans the reference's half circle, u·π.  Returns (dir V3,
+    cos = n·dir)."""
+    u = key.uniform((2,) + tuple(normal.x.shape))
+    inclination = torch.arccos(u[0] * 2.0 - 1.0)
+    azimuth = u[1] * PI
+    lo = v3m.spherical_to_cartesian(1.0, inclination, azimuth)
+    nx, ny, nz = normal
+    down = (ny - eps) < -1.0
+    mul = 1.0 / torch.where(down, 1.0, 1.0 + ny)
+    rx = V3(1.0 - nx * nx * mul, nx, -nx * nz * mul)
+    ry = V3(-nx, 1.0 - (nx * nx + nz * nz) * mul, -nz)
+    rz = V3(-nx * nz * mul, nz, 1.0 - nz * nz * mul)
+    d = V3(v3m.dot(rx, lo), v3m.dot(ry, lo), v3m.dot(rz, lo))
+    d = v3m.where(down, V3(lo.x, -lo.y, -lo.z), d)
+    return d, v3m.dot(normal, d)
 
 
 def _sphere_light_point_from_u(u, center: V3, radius, hit_pt: V3):

@@ -53,6 +53,16 @@ def named_leaves(params) -> list:
                for f in _CAMERA_FIELDS])
 
 
+def map_leaves(params, fn) -> T.SceneParams:
+    """``T.SceneParams`` of ``fn(leaf)`` for every leaf of ``params``."""
+    return T.SceneParams(
+        materials=T.Materials(**{f: fn(getattr(params.materials, f))
+                                 for f in _MATERIAL_FIELDS}),
+        camera=T.Camera(**{f: fn(getattr(params.camera, f))
+                           for f in _CAMERA_FIELDS}),
+        **{f: fn(getattr(params, f)) for f in _PARAM_FIELDS})
+
+
 def _grad(x) -> np.ndarray:
     g = x.grad if isinstance(x, torch.Tensor) else None
     if g is None:
@@ -64,9 +74,4 @@ def grads_to_numpy(params: T.SceneParams) -> T.SceneParams:
     """The ``.grad`` of every leaf of ``params`` (as ``params_to_torch``
     returned it) as host NumPy arrays in a ``T.SceneParams``, zeros where
     a leaf has no grad."""
-    return T.SceneParams(
-        materials=T.Materials(**{f: _grad(getattr(params.materials, f))
-                                 for f in _MATERIAL_FIELDS}),
-        camera=T.Camera(**{f: _grad(getattr(params.camera, f))
-                           for f in _CAMERA_FIELDS}),
-        **{f: _grad(getattr(params, f)) for f in _PARAM_FIELDS})
+    return map_leaves(params, _grad)

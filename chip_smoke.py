@@ -23,12 +23,24 @@ drive the stack integrator of transparent scenes: kernel 3 at the glass
 stand-in's shapes with lists of 64, 128 and 256 (14); small glass and
 scenes/example.json frames, card against CPU (15); the glass stand-in
 (scenes/meshes_glass.json, the dragon in glass, union shadows) at 64x64
-under RenderConfig(), with 100 and 300 light samples (16);
+under RenderConfig() (16);
 scenes/example.json at 1024x1024 (17); a forward+backward step of the
 glass stand-in at 64x64 and card against CPU grads of a 16x16 glass frame
-(18).  Each phase prints one line or a few; any failed check raises, so
-the script exits non-zero and prints no result.  The last two lines are
-the kernels' JSON summary and the run's result line.
+(18).  Phases 19-23 drive path-traced GI (``gi_model="path"``) and the
+host-tiled entry points: dense 64x64 and glass 32x32 GI frames, card
+against CPU, and kernels 1-3 against their plain versions at the GI
+shapes (the hemisphere draws, a light chunk at GI child hits, the visit
+order of a GI child trace at lists of 64, 128 and 256) (19-20); the dense
+stand-in at 1024x1024 under bench.py's path-GI settings (spp 4), a frame
+and a forward+backward step (21); the host-tiled renderer against
+make_renderer, bit for bit (22); and the flagship, bench.py's scene5
+value-and-grad on the glass stand-in (64x64, 24 lights, spp 4,
+light_chunk 8), one host-tiled frame and one host-tiled value-and-grad
+step, with card against CPU grads at 16x16 (23).  Each phase prints one
+line or a few; any failed check raises, so the script exits non-zero and
+prints no result.  The last two lines are the kernels' JSON summary and
+the run's result line.  The profile of the dense forward+backward step is
+``tools/profiling/torch_frame_profile.py --fwd-bwd``.
 
 Kernel times: ``device ms`` is the CUDA kernel time that torch.profiler
 records over 50 launches, divided by the launches it recorded (phase 10
@@ -46,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import subprocess
 import sys
@@ -60,8 +73,13 @@ from c_raytracer_tpu_torch.accel import make_intersector, reorder_scene
 from c_raytracer_tpu_torch.accel import pallas_visit
 from c_raytracer_tpu_torch.core import rng
 from c_raytracer_tpu_torch.geometry import device_scene
-from c_raytracer_tpu_torch.render import RenderConfig, fused_shadow
-from c_raytracer_tpu_torch.render.api import make_renderer
+from c_raytracer_tpu_torch.render import (RenderConfig, fused_shadow,
+                                          integrator, shading)
+from c_raytracer_tpu_torch.render import api
+from c_raytracer_tpu_torch.render.api import (make_host_tiled_renderer,
+                                              make_host_tiled_value_and_grad,
+                                              make_renderer)
+from c_raytracer_tpu_torch.render.integrator import GI_TAG
 from c_raytracer_tpu_torch.render.camera import primary_rays
 from c_raytracer_tpu_torch.scene import load_scene, params_to_torch
 
@@ -73,6 +91,12 @@ GLASS_SCENE = "scenes/meshes_glass.json"
 GLASS_RES = 64
 EXAMPLE_SCENE = "scenes/example.json"
 GLASS_LISTS = (64, 128, 256)   # kernel 3's list sizes on the glass path
+# path GI at bench.py:97's settings, and bench.py:251-285's flagship (its
+# lights capped at 24; the auto cluster tile of 2048, not its tile of 512)
+GI_CFG = RenderConfig(gi_model="path", samples_per_pixel=4)
+FLAGSHIP_CFG = RenderConfig(gi_model="path", samples_per_pixel=4,
+                            light_chunk=8)
+FLAGSHIP_LIGHTS = 24
 KAT = {  # Random123 philox4x32_10, counter 0, key 0
     "ctr0_key0": (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)}
 COMBOS = [(phong, att) for phong in (True, False)
@@ -400,10 +424,14 @@ def grads_agree(card, cpu, what: str) -> tuple[str, float]:
     return worst
 
 
-def time_fwd_bwd(render, params, device, seed, launch_fns):
-    """One warm-up forward+backward step of mean(img²) over every leaf,
-    then one timed step.  Returns (seconds, forward stats, launches in the
-    timed step, peak bytes, named leaves)."""
+def time_fwd_bwd(render, params, device, seed, launch_fns, warmup=True,
+                 finite=True):
+    """One warm-up forward+backward step of mean(img²) over every leaf
+    (unless ``warmup`` is False: the path's forward frames already ran),
+    then one timed step; with ``finite`` the grads must be finite (False
+    where the frame holds a non-finite pixel, so that the loss is inf).
+    Returns (seconds, forward stats, launches in the timed step, peak
+    bytes, named leaves)."""
     p, named = grad_params(params, device)
 
     def step():
@@ -413,7 +441,8 @@ def time_fwd_bwd(render, params, device, seed, launch_fns):
         img.square().mean().backward()
         return st
 
-    step()
+    if warmup:
+        step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     for fn in launch_fns.values():
@@ -424,18 +453,19 @@ def time_fwd_bwd(render, params, device, seed, launch_fns):
     secs = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in launch_fns.items()}
     check(all(n > 0 for n in launches.values()), f"launches {launches}")
-    for name, x in named:
-        check(x.grad is None or bool(torch.isfinite(x.grad).all()),
-              f"fwd+bwd grad {name} finite")
-    check(any(x.grad is not None and bool(x.grad.abs().max() > 0)
-              for _, x in named), "fwd+bwd grads nonzero")
+    check(any(x.grad is not None for _, x in named), "fwd+bwd grads")
+    if finite:
+        for name, x in named:
+            check(x.grad is None or bool(torch.isfinite(x.grad).all()),
+                  f"fwd+bwd grad {name} finite")
+        check(any(x.grad is not None and bool(x.grad.abs().max() > 0)
+                  for _, x in named), "fwd+bwd grads nonzero")
     return (secs, {k: float(v) for k, v in st.items()}, launches,
             torch.cuda.max_memory_allocated(device), named)
 
 
 def with_lights(sc, n: int):
     """The scene's static with every emitter at ``n`` light samples."""
-    import dataclasses
     return dataclasses.replace(sc.static, num_lights=tuple(
         n if k else 0 for k in sc.static.num_lights))
 
@@ -447,6 +477,340 @@ def check_frame(img, z, res, what: str) -> None:
           f"{what} image finite and lit")
     check(bool((z > 0).any()) and bool((z == 0).any()),
           f"{what} z has hits and misses")
+
+
+def cap_lights(sc, n: int):
+    """The scene's static with every emitter at most ``n`` light samples
+    (bench.py's flagship caps scene5's lights at 24)."""
+    return dataclasses.replace(sc.static, num_lights=tuple(
+        min(k, n) for k in sc.static.num_lights))
+
+
+def stats_equal(a: dict, b: dict, what: str) -> None:
+    for k in b:
+        check(a[k] == b[k], f"{what} {k}: card {a[k]} cpu {b[k]}")
+
+
+def worst_pixel(a, b) -> tuple[float, float, tuple]:
+    """Card image ``a`` against CPU image ``b``: (share of pixels within
+    1e-4·max, the largest |diff| over max, its (row, col))."""
+    diff = (a - b).abs().amax(-1) / b.max()
+    share = (diff <= 1e-4).float().mean().item()
+    at = divmod(int(diff.argmax()), diff.shape[1])
+    return share, diff.max().item(), at
+
+
+def nonfinite_tiles_agree(static, params, cfg, img, seed) -> list:
+    """The non-finite pixels of a card frame, each reproduced on the CPU.
+
+    Under path GI the reference's arithmetic can overflow: its sphere and
+    reflection normals are not renormalised, so at a grazing hit a GI
+    child's direction can leave unit length by a few percent, the sphere
+    test (which takes |d| = 1) then puts the child's hit off the surface
+    with a normal of length ~2.7, and the specular powf of 200 light
+    samples passes FLT_MAX (the reference saturates such a pixel when it
+    quantizes).  At most 1e-5 of the pixels may be non-finite, and each
+    tile that holds one is rendered again on the CPU: the same pixels must
+    be non-finite there, and the tile's finite pixels within 1e-4·max.
+    Returns the non-finite pixels' (row, col)."""
+    resy, resx = img.shape[:2]
+    bad = ~torch.isfinite(img).all(-1).cpu()
+    n_bad = int(bad.sum())
+    check(n_bad <= 1e-5 * resx * resy, f"{n_bad} non-finite pixels")
+    if not n_bad:
+        return []
+    # one tile on the CPU: the frame's tiling and draws (render/api.py)
+    frame = api._Frame(static, cfg, resx, resy, "cpu")
+    flat = bad.reshape(-1)
+    with torch.no_grad():
+        ix, o, d = frame.setup(params_to_torch(params, "cpu"), False)
+        for t in sorted(set((flat.nonzero()[:, 0] // frame.tile).tolist())):
+            rows = slice(t * frame.tile, (t + 1) * frame.tile)
+            color, _ = frame.tiles(ix, o, d, rng.PhiloxSampler(seed, "cpu"),
+                                   t, t + 1, False)
+            card = img.reshape(-1, 3)[rows].cpu()
+            fin = torch.isfinite(color).all(-1)
+            check(torch.equal(~fin, flat[rows]),
+                  f"tile {t}: the card's non-finite pixels on the CPU")
+            scale = color[fin].abs().max()
+            check(bool(((card[fin] - color[fin]).abs().amax(-1)
+                        <= 1e-4 * scale).float().mean() >= 0.99),
+                  f"tile {t}: finite pixels on the CPU")
+    return [divmod(int(i), resx) for i in flat.nonzero()[:, 0]]
+
+
+def capture_gi_chunk(static, params, cfg, device, seed):
+    """The operands of kernel 2's first call at a GI child's hits (round 0,
+    sample 0, chunk 0) in one 256x256 tile of the dense stand-in."""
+    def keep(ckey, n_valid, statics, px, scal_f):
+        if len(ckey.path) < 3 or ckey.path[2] != GI_TAG or ckey.path[-1]:
+            return None
+        u = ckey.uniform((2, statics["lc"], px.shape[1]))
+        return u, px.clone(), scal_f.clone(), n_valid, dict(statics)
+
+    calls = record(shading, "_fused_chunk", lambda: make_renderer(
+        static, cfg, 256, 256, device=device)(
+            params, rng.PhiloxSampler(seed, device)), keep)
+    return calls[0]
+
+
+def capture_gi_visit(static, params, cfg, res, device, seed):
+    """The visit-order operands of the GI child traces of a frame's first
+    round, in call order."""
+    in_gi = [False]
+    real = integrator._gi_sample
+
+    def gi_sample(*a):
+        in_gi[0] = True
+        try:
+            return real(*a)
+        finally:
+            in_gi[0] = False
+
+    integrator._gi_sample = gi_sample
+    try:
+        return record(pallas_visit, "visit_order", lambda: make_renderer(
+            static, dataclasses.replace(cfg, rounds=1), res, res,
+            device=device)(params, rng.PhiloxSampler(seed, device)),
+            lambda o, d, lo, hi, V, count_max_dist=None:
+            (o.clone(), d.clone(), lo, hi, V) if in_gi[0] else None)
+    finally:
+        integrator._gi_sample = real
+
+
+def flagship_loss(color, z, target):
+    """bench.py's flagship pixel loss: Σ color² over the channels."""
+    return (color * color).sum(-1)
+
+
+def flagship_grads(static, params, res, device, seed):
+    """{leaf name: grad on the CPU} of the flagship loss by the host-tiled
+    value-and-grad on ``device``, at 3 bounces (the CPU's time)."""
+    from c_raytracer_tpu_torch.scene import named_leaves
+    cfg = dataclasses.replace(FLAGSHIP_CFG, max_bounces=3)
+    vg = make_host_tiled_value_and_grad(static, cfg, res, res,
+                                        flagship_loss, device=device)
+    _, g = vg(params, rng.PhiloxSampler(seed, device))
+    return {n: x.cpu() for n, x in named_leaves(g)}
+
+
+def gi_phases(sc, gsc, dev, seed, gen, n_sm) -> dict:
+    """Phases 19-23: path-traced GI and the host-tiled entry points.
+    Returns the numbers for the kernels' JSON line."""
+    cpu = torch.device("cpu")
+    out = {"kernel_gi": collections.defaultdict(list), "launches": {}}
+
+    # -- phase 19: dense 64x64 path GI, card against CPU ------------------
+    fr = [render_on(d, sc.static, sc.params, GI_CFG, 64, seed)
+          for d in (dev, cpu)]
+    stats_equal(fr[0][2], fr[1][2], "dense 64x64 path GI")
+    share, worst, at = worst_pixel(fr[0][0], fr[1][0])
+    zok = ((fr[0][1] - fr[1][1]).abs() <= 1e-4 * fr[1][1].max()).float()
+    check(share >= 0.99, f"dense GI image: {share:.5f} of pixels")
+    check(zok.mean().item() >= 0.99, f"dense GI z: {zok.mean():.5f}")
+    phase(19, f"dense 64x64, path GI spp 4: card vs CPU stats equal "
+              f"{fr[0][2]}; image {share:.5f} of pixels within 1e-4·max, "
+              f"worst pixel {at} at {worst:.3e}·max; z {zok.mean():.5f}")
+    w = torch.rand((64, 64, 3), generator=torch.Generator().manual_seed(seed))
+    wz = torch.zeros((64, 64))
+    card = frame_grads(sc.static, sc.params, GI_CFG, 64, 64, dev, seed, w, wz)
+    cpu_g = frame_grads(sc.static, sc.params, GI_CFG, 64, 64, cpu, seed, w,
+                        wz)
+    worst_g = grads_agree(card, cpu_g, "dense 64x64 path GI")
+    phase(19, f"card vs CPU grads of sum(img·w), dense 64x64 path GI spp 4: "
+              f"every leaf finite and within tolerance; worst leaf {worst_g}")
+
+    # -- phase 20: glass 32x32 path GI card vs CPU; kernels at GI shapes ---
+    gstatic20 = with_lights(gsc, 20)
+    gcfg = RenderConfig(max_bounces=1, gi_model="path", samples_per_pixel=2)
+    fr = [render_on(d, gstatic20, gsc.params, gcfg, 32, seed)
+          for d in (dev, cpu)]
+    stats_equal(fr[0][2], fr[1][2], "glass 32x32 path GI")
+    check_frame(fr[0][0], fr[0][1], 32, "glass 32x32 path GI")
+    share, worst, at = worst_pixel(fr[0][0], fr[1][0])
+    check(share >= 0.99, f"glass GI image: {share:.5f} of pixels")
+    phase(20, f"glass 32x32 (1 bounce, 20 lights), path GI spp 2: card vs "
+              f"CPU stats equal {fr[0][2]}; image {share:.5f} of pixels "
+              f"within 1e-4·max, worst pixel {at} at {worst:.3e}·max")
+    key = rng.path_key(seed, (0, 0, GI_TAG, 0, 0))
+    for shp in ((2, 65536), (2, 2048)):
+        k = rng.philox_uniform(key, shp, device=dev)
+        check(torch.equal(k, rng.philox_uniform_reference(key, shp,
+                                                          device=dev)),
+              f"philox bit-exact {shp}")
+        lib_runs, dev_runs = paired(
+            lambda: torch.rand(shp, generator=gen, device=dev),
+            lambda: rng.philox_uniform(key, shp, device=dev), device_ms)
+        out["kernel_gi"]["philox_uniform"].append(dict(time_line(
+            f"philox hemisphere draw {shp}", dev_runs,
+            bound_ms(4 * shp[0] * shp[1], 0), library_ms=mean(lib_runs)),
+            shape=list(shp), plain_ms=device_ms(
+                lambda: rng.philox_uniform_reference(key, shp, device=dev),
+                10)))
+    cu, cpx, csf, cnv, ckw = capture_gi_chunk(sc.static, sc.params, GI_CFG,
+                                              dev, seed)
+    err2 = compare_fused(cu, cpx, csf, cnv, ckw)
+    P = cpx.shape[1]
+    live = int((cpx[16] > 0).sum())
+    samples = live * min(ckw["lc"], cnv)
+    ops = samples * (FUSED_OPS_PER_SAMPLE
+                     + FUSED_OPS_PER_SPHERE * (ckw["ns"] - 1)
+                     + FUSED_OPS_PER_PLANE * ckw["npl"])
+
+    def run2():
+        return fused_shadow.fused_chunk(cu, cpx, csf, cnv, **ckw)
+
+    out["kernel_gi"]["fused_shadow_chunk"].append(dict(time_line(
+        f"fused chunk at GI child hits lc={ckw['lc']} P={P} ({live} live "
+        f"pixels)", [device_ms(run2), device_ms(run2)],
+        bound_ms(4 * (2 * samples + P + 16 * live + csf.numel() + 3 * P),
+                 ops)), max_abs_err=err2, plain_ms=device_ms(
+        lambda: fused_shadow.fused_chunk_reference(cu, cpx, csf, cnv, **ckw),
+        10)))
+    vcalls = capture_gi_visit(gstatic20, gsc.params, FLAGSHIP_CFG,
+                              GLASS_RES, dev, seed)
+    check(len(vcalls) >= 4, f"{len(vcalls)} GI child traces captured")
+    co, cd, clo, chi, _ = vcalls[0]
+    R_, K_ = co.shape[0], clo.shape[0]
+    live = int((torch.isfinite(co).all(1) & torch.isfinite(cd).all(1)).sum())
+    for v in GLASS_LISTS:
+        n_ok, sp, err3 = compare_visit(co, cd, clo, chi, v)
+
+        def run3(v=v):
+            return pallas_visit.visit_order(co, cd, clo, chi, v)
+        out["kernel_gi"]["visit_order"].append(dict(time_line(
+            f"visit order GI child trace R={R_} K={K_} V={v} ({n_ok} ok "
+            f"slots, spill max {sp})", [device_ms(run3), device_ms(run3)],
+            bound_ms(4 * (6 * R_ + 6 * K_ + 2 * R_ * v + R_),
+                     VISIT_OPS_PER_BOX * live * K_),
+            split=str(pallas_visit.visit_split(R_, K_, v, n_sm))),
+            V=v, spill_max=sp, ok_slots=n_ok, max_abs_err=err3,
+            plain_ms=device_ms(lambda v=v: pallas_visit.visit_order_reference(
+                co, cd, clo, chi, v), 10)))
+    phase(20, "kernels 1-3 match their plain versions at the GI shapes: "
+              "philox (2,65536) (2,2048) bit-exact; fused chunk at GI child "
+              f"hits max |diff| {err2:.3e}; visit order of a GI child trace "
+              f"bit-equal at V={GLASS_LISTS}")
+
+    # -- phase 21: dense 1024x1024 path GI, frame and fwd+bwd -------------
+    dense_fns = {"philox_uniform": rng.philox_uniform,
+                 "fused_shadow_chunk": fused_shadow.fused_chunk}
+    render = make_renderer(sc.static, GI_CFG, 1024, 1024, device=dev,
+                           with_stats=True)
+    img, z, st, secs, launches, peak = time_frames(
+        render, sc.params, rng.PhiloxSampler(seed, dev), dev, dense_fns)
+    check(all(n > 0 for n in launches.values()), f"launches {launches}")
+    bad = nonfinite_tiles_agree(sc.static, sc.params, GI_CFG, img, seed)
+    check_frame(torch.where(torch.isfinite(img), img, 0.0), z, 1024,
+                "dense path GI 1024")
+    check(st["gi_rays"] > 0, f"GI rays {st}")
+    rays = st["main_rays"] + st["shadow_rays"] + st["gi_rays"]
+    frame_s = mean(secs)
+    out["launches"]["dense_gi_1024_3_frames"] = launches
+    out["dense_gi"] = dict(frame_s=frame_s, frame_runs=secs, stats=st,
+                           peak_mib=peak / 2**20)
+    phase(21, f"1024x1024 stand-in, path GI spp 4: frame s "
+              f"{[round(x, 6) for x in secs]} mean {frame_s:.6f}; "
+              f"{rays / 2**20:.2f} rays/px; {rays / frame_s:.6e} rays/s; "
+              f"peak {peak / 2**20:.1f} MiB; launches {launches} over 3 "
+              f"frames; stats {st}; non-finite pixels (row, col) {bad}, "
+              f"each the same on the CPU")
+    del img, z
+    torch.cuda.empty_cache()
+    bsecs, _, blaunch, bpeak, _ = time_fwd_bwd(
+        render, sc.params, dev, seed, dense_fns, warmup=False,
+        finite=not bad)
+    out["launches"]["dense_gi_1024_fwd_bwd"] = blaunch
+    phase(21, f"path GI fwd+bwd, mean(img²) over every leaf (no warm-up "
+              f"step): s {bsecs:.6f}; {bsecs / frame_s:.3f}x the forward; "
+              f"peak {bpeak / 2**20:.1f} MiB; launches {blaunch}"
+              + ("; grads not finite: the frame's loss is inf" if bad
+                 else ""))
+    del render
+    torch.cuda.empty_cache()
+
+    # -- phase 22: host-tiled renderer == make_renderer on the card --------
+    hcfg = dataclasses.replace(GI_CFG, tile_size=20000)   # 4 tiles, padded
+    ref = make_renderer(sc.static, hcfg, 256, 256, device=dev,
+                        with_stats=True)(sc.params,
+                                         rng.PhiloxSampler(seed, dev))
+    for tpc in (1, 3):
+        got = make_host_tiled_renderer(sc.static, hcfg, 256, 256, device=dev,
+                                       tiles_per_call=tpc, with_stats=True)(
+            sc.params, rng.PhiloxSampler(seed, dev))
+        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+              f"host-tiled frame, tiles_per_call={tpc}")
+        check({k: float(v) for k, v in got[2].items()}
+              == {k: float(v) for k, v in ref[2].items()},
+              f"host-tiled stats, tiles_per_call={tpc}")
+    phase(22, "host-tiled renderer equals make_renderer bit for bit: dense "
+              "256x256, path GI spp 4, tiles of 20,000 px (4, the last "
+              "padded), tiles_per_call 1 and 3; image, z and stats")
+
+    # -- phase 23: the flagship, glass 64x64 path GI host-tiled -----------
+    fstatic = cap_lights(gsc, FLAGSHIP_LIGHTS)
+    glass_fns = {"philox_uniform": rng.philox_uniform,
+                 "visit_order": pallas_visit.visit_order}
+    hrender = make_host_tiled_renderer(fstatic, FLAGSHIP_CFG, GLASS_RES,
+                                       GLASS_RES, device=dev,
+                                       with_stats=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in glass_fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    img, z, fst = hrender(gsc.params, rng.PhiloxSampler(seed, dev))
+    torch.cuda.synchronize()
+    fsecs = time.perf_counter() - t0
+    flaunch = {k: fn.launches for k, fn in glass_fns.items()}
+    fpeak = torch.cuda.max_memory_allocated(dev)
+    check(all(n > 0 for n in flaunch.values()), f"launches {flaunch}")
+    check_frame(img, z, GLASS_RES, "flagship frame")
+    fst = {k: float(v) for k, v in fst.items()}
+    frays = fst["main_rays"] + fst["shadow_rays"] + fst["gi_rays"]
+    out["launches"]["flagship_frame"] = flaunch
+    phase(23, f"flagship: glass {GLASS_RES}x{GLASS_RES}, 24 lights, path GI "
+              f"spp 4, light_chunk 8, host-tiled (2 batches of the auto "
+              f"tile 2048), one frame: s {fsecs:.6f}; {frays:.0f} rays, "
+              f"{frays / fsecs:.6e} rays/s; peak {fpeak / 2**20:.1f} MiB; "
+              f"launches {flaunch}; spill max shadow "
+              f"{fst['shadow_spill_max']:.0f} visit "
+              f"{fst['visit_spill_max']:.0f}; stats {fst}")
+    del img, z
+    vg = make_host_tiled_value_and_grad(fstatic, FLAGSHIP_CFG, GLASS_RES,
+                                        GLASS_RES, flagship_loss, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in glass_fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    loss, grads = vg(gsc.params, rng.PhiloxSampler(seed, dev))
+    torch.cuda.synchronize()
+    vsecs = time.perf_counter() - t0
+    vlaunch = {k: fn.launches for k, fn in glass_fns.items()}
+    vpeak = torch.cuda.max_memory_allocated(dev)
+    check(all(n > 0 for n in vlaunch.values()), f"launches {vlaunch}")
+    from c_raytracer_tpu_torch.scene import named_leaves
+    gl = named_leaves(grads)
+    check(all(bool(torch.isfinite(g).all()) for _, g in gl)
+          and any(bool(g.abs().max() > 0) for _, g in gl if g.numel()),
+          "flagship grads finite and live")
+    out["launches"]["flagship_value_and_grad"] = vlaunch
+    out["flagship"] = dict(frame_s=fsecs, frame_peak_mib=fpeak / 2**20,
+                           frame_stats=fst, step_s=vsecs,
+                           step_peak_mib=vpeak / 2**20, loss=loss)
+    phase(23, f"flagship host-tiled value-and-grad, one step: s "
+              f"{vsecs:.6f} ({vsecs / fsecs:.3f}x the frame); loss "
+              f"{loss:.6e}; peak {vpeak / 2**20:.1f} MiB; launches "
+              f"{vlaunch}")
+    del grads, vg, hrender
+    torch.cuda.empty_cache()
+    card = flagship_grads(fstatic, gsc.params, 16, dev, seed)
+    cpu_g = flagship_grads(fstatic, gsc.params, 16, cpu, seed)
+    worst = grads_agree(card, cpu_g, "flagship 16x16")
+    phase(23, f"flagship card vs CPU grads at 16x16 (3 bounces), every "
+              f"leaf finite and within tolerance; worst leaf {worst}")
+    return out
 
 
 def main() -> int:
@@ -794,56 +1158,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase(12, f"without rematerialisation (remat=False), one fwd+bwd step: "
               f"peak {peak_off / 2**20:.1f} MiB")
-    # one step under torch.profiler: device busy time, the largest device
-    # items, and kernel 2's backward (its calls annotated)
-    real_bwd = fused_shadow._FusedChunk.backward
-
-    def annotated(ctx, g):
-        with torch.profiler.record_function("fused_chunk_backward"):
-            return real_bwd(ctx, g)
-
-    p_prof, _ = grad_params(sc.params, dev)
-    fused_shadow._FusedChunk.backward = staticmethod(annotated)
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            img, _, _ = render(p_prof, rng.PhiloxSampler(args.seed, dev))
-            img.square().mean().backward()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        fused_shadow._FusedChunk.backward = staticmethod(real_bwd)
-    del p_prof, img
-    events = prof.key_averages()
-    # the annotation's own range on the device is a span, not a kernel
-    kern = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                   and e.key != "fused_chunk_backward"),
-                  key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    k2b = [e for e in events if e.key == "fused_chunk_backward"
-           and e.device_type == DeviceType.CPU]
-    k2b_ms = k2b[0].device_time_total / 1e3 if k2b else 0.0
-    k2b_calls = k2b[0].count if k2b else 0
-    check(k2b_calls > 0, "kernel 2's backward ran in the profiled step")
-    largest = [(e.key[:48], e.count,
-                round(e.self_device_time_total / 1e3, 3)) for e in kern[:6]]
-    phase(12, f"profiled fwd+bwd step: wall {wall_ms:.3f} ms, device busy "
-              f"{busy_ms:.3f} ms over {sum(e.count for e in kern)} kernels, "
-              f"idle share {1 - busy_ms / wall_ms:.4f}; kernel 2's backward "
-              f"{k2b_ms:.3f} ms over {k2b_calls} calls (phase 10's "
-              f"{mean(bwd_runs):.4f} ms a call x {k2b_calls} = "
-              f"{mean(bwd_runs) * k2b_calls:.3f} ms); largest kernels (name, "
-              f"count, ms) {largest}")
-
     # -- phase 13: mesh forward+backward at 512x512 -----------------------
     mesh_fns = {"philox_uniform": rng.philox_uniform,
                 "visit_order": pallas_visit.visit_order}
+    # no warm-up step (the budget of the whole run): phase 9's frames
+    # warmed the path up
     msecs_b, mst_b, mlaunch_b, mpeak_b, _ = time_fwd_bwd(
-        mrender, msc.params, dev, args.seed, mesh_fns)
+        mrender, msc.params, dev, args.seed, mesh_fns, warmup=False)
     mrays_b = mst_b["main_rays"] + mst_b["shadow_rays"] + mst_b["gi_rays"]
     phase(13, f"{MESH_RES}x{MESH_RES} mesh stand-in, RenderConfig(), "
-              f"mean(img²) over every leaf: fwd+bwd s {msecs_b:.6f}; "
+              f"mean(img²) over every leaf (no warm-up step): fwd+bwd s "
+              f"{msecs_b:.6f}; "
               f"{mrays_b / msecs_b:.6e} rays/s (the forward's rays); "
               f"{msecs_b / mframe_s:.3f}x phase 9's forward; peak "
               f"{mpeak_b / 2**20:.1f} MiB; launches {mlaunch_b}")
@@ -961,19 +1286,6 @@ def main() -> int:
               f"{gframe_s:.6f}; {grays / GLASS_RES ** 2:.2f} rays/px; "
               f"{grays / gframe_s:.6e} rays/s; peak {gpeak / 2**20:.1f} MiB; "
               f"launches {glaunches}; stats {gst}")
-    g300 = make_renderer(with_lights(gsc, 300), gcfg, GLASS_RES, GLASS_RES,
-                         device=dev, with_stats=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, _, st300 = g300(gsc.params, rng.PhiloxSampler(args.seed, dev))
-    torch.cuda.synchronize()
-    s300 = time.perf_counter() - t0
-    rays300 = float(st300["main_rays"] + st300["shadow_rays"])
-    phase(16, f"300 lights, one frame (no warm-up at this shape): s "
-              f"{s300:.6f}; {rays300 / s300:.6e} rays/s; spill max shadow "
-              f"{float(st300['shadow_spill_max']):.0f} visit "
-              f"{float(st300['visit_spill_max']):.0f}")
-    del g300
 
     # -- phase 17: scenes/example.json at 1024x1024 ------------------------
     erender = make_renderer(ex_sc.static, cfg, 1024, 1024, device=dev,
@@ -993,10 +1305,11 @@ def main() -> int:
 
     # -- phase 18: glass forward+backward, and card vs CPU grads ----------
     gsecs_b, gst_b, glaunch_b, gpeak_b, _ = time_fwd_bwd(
-        grender, gsc.params, dev, args.seed, glass_fns)
+        grender, gsc.params, dev, args.seed, glass_fns, warmup=False)
     grays_b = gst_b["main_rays"] + gst_b["shadow_rays"]
     phase(18, f"{GLASS_RES}x{GLASS_RES} glass stand-in, RenderConfig(), "
-              f"mean(img²) over every leaf: fwd+bwd s {gsecs_b:.6f}; "
+              f"mean(img²) over every leaf (no warm-up step): fwd+bwd s "
+              f"{gsecs_b:.6f}; "
               f"{grays_b / gsecs_b:.6e} rays/s (the forward's rays); "
               f"{gsecs_b / gframe_s:.3f}x phase 16's forward; peak "
               f"{gpeak_b / 2**20:.1f} MiB; launches {glaunch_b}")
@@ -1016,31 +1329,43 @@ def main() -> int:
               f"every leaf finite and within tolerance; worst leaf "
               f"{worst_g}")
 
-    def row(name, source, replaces, n_launches, err, issue, library):
+    gi = gi_phases(sc, gsc, dev, args.seed, gen, n_sm)
+    # each main path's launches, its counts set to 0 just before it ran
+    by_path = {"dense_1024_3_frames": launches,
+               "mesh_512_3_frames": mlaunches,
+               "glass_64_3_frames": glaunches, **gi["launches"]}
+
+    def path_launches(name):
+        return {path: n[name] for path, n in by_path.items() if name in n}
+
+    def row(name, source, replaces, err, issue, library):
         head = times[name][0]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": n_launches,
-                "max_abs_err": err, "ms": head["device_ms"],
+                "replaces": replaces,
+                "launches": sum(path_launches(name).values()),
+                "max_abs_err": max([err] + [r.get("max_abs_err", 0.0)
+                                            for r in gi["kernel_gi"][name]]),
+                "ms": head["device_ms"],
                 "device_ms": head["device_ms"], "issue_ms": mean(issue),
                 "plain_ms": plain_dev[name], "bound_ms": head["bound_ms"],
                 "bound_by": head["bound_by"], "library_ms": library,
                 "launches_per_frame": per_frame[name],
                 "launches_fwd_bwd": fwd_bwd_launches[name],
-                "shapes": times[name]}
+                "launches_by_path": path_launches(name),
+                "shapes": times[name], "gi_shapes": gi["kernel_gi"][name]}
 
     print(json.dumps({"kernels": [
         row("philox_uniform", "c_raytracer_tpu_torch/csrc/philox.cu",
-            "c_raytracer_tpu/core/rng.py:103",
-            launches["philox_uniform"] + mlaunches["philox_uniform"], 0.0,
+            "c_raytracer_tpu/core/rng.py:103", 0.0,
             ph_issue, times["philox_uniform"][0]["library_ms"]),
         dict(row("fused_shadow_chunk",
                  "c_raytracer_tpu_torch/csrc/fused_shadow.cu",
                  "c_raytracer_tpu/render/fused_shadow.py:195",
-                 launches["fused_shadow_chunk"], fused_err, fu_issue, None),
+                 fused_err, fu_issue, None),
              backward_ms=mean(bwd_runs), backward_runs=bwd_runs),
         row("visit_order", "c_raytracer_tpu_torch/csrc/visit_order.cu",
-            "c_raytracer_tpu/accel/pallas_visit.py:98",
-            mlaunches["visit_order"], vo_err, vo_issue, None),
+            "c_raytracer_tpu/accel/pallas_visit.py:98", vo_err, vo_issue,
+            None),
     ] + [{
         "name": f"visit_order[V={v}]", "route": "cuda",
         "source": "c_raytracer_tpu_torch/csrc/visit_order.cu",

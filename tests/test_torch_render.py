@@ -31,6 +31,7 @@ from c_raytracer_tpu.render import make_renderer as jax_make_renderer
 from c_raytracer_tpu.scene import load_scene as jax_load_scene
 from c_raytracer_tpu_torch.core.rng import PhiloxSampler
 from c_raytracer_tpu_torch.render import RenderConfig, make_renderer
+from c_raytracer_tpu_torch.render.integrator import GI_TAG
 from c_raytracer_tpu_torch.scene import load_scene, make_scene
 
 SCENE = os.path.join(os.path.dirname(__file__), "..", "scenes",
@@ -39,17 +40,33 @@ EXACT_STATS = ("main_rays", "shadow_rays", "gi_rays", "children_pushed")
 
 
 class JaxKeySampler:
-    """Uniforms of the JAX renderer for a port sample path."""
+    """Uniforms of the JAX renderer for a port sample path: the shading's
+    ``(tile, round, emitter, chunk)``, a GI sample's direction ``(tile,
+    round, GI_TAG, sample, 0)`` and its child's light chunks ``(tile,
+    round, GI_TAG, sample, 1, emitter, chunk)`` (integrator.py:110-111
+    there: the sample key ``fold_in(k_gi, sample)`` splits into the
+    direction's key and the child's shading key)."""
 
     def __init__(self, key, n_tiles):
         self.tile_keys = jax.random.split(key, n_tiles)
 
     def uniform(self, path, shape):
-        tile, round_i, e_i, chunk = path
+        tile, round_i, *rest = path
         rkey = jax.random.fold_in(self.tile_keys[tile], round_i)
-        k_shade, _ = jax.random.split(rkey)
+        k_shade, k_gi = jax.random.split(rkey)
+        if rest[0] == GI_TAG:
+            _, sample, part, *rest = rest
+            k_dir, k_shade = jax.random.split(
+                jax.random.fold_in(k_gi, sample))
+            if part == 0:
+                return self._draw(k_dir, shape)
+        e_i, chunk = rest
         ckey = jax.random.fold_in(jax.random.fold_in(k_shade, e_i), chunk)
-        u = jax.random.uniform(ckey, shape, jnp.float32)
+        return self._draw(ckey, shape)
+
+    @staticmethod
+    def _draw(key, shape):
+        u = jax.random.uniform(key, shape, jnp.float32)
         return torch.from_numpy(np.array(u))
 
 
@@ -119,7 +136,7 @@ def test_port_loader_renders_same_as_jax_params():
     torch.testing.assert_close(a[1], b[1], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("what", ["path_gi", "remat_names"])
+@pytest.mark.parametrize("what", ["closest_compact", "remat_names"])
 def test_outside_the_slice_raises(what):
     mats = [dict(ks=[0.5] * 3, ka=[0.1] * 3, kr=[0] * 3, kt=[0] * 3,
                  ke=[0] * 3, shininess=8.0, refractive_index=1.0,
@@ -129,10 +146,13 @@ def test_outside_the_slice_raises(what):
                fov=60, focal_length=1)
     sc = make_scene(sphere_center=[[0, 0, 0], [0, 3, 0]],
                     sphere_radius=[1.0, 0.5], sphere_material=[0, 1],
-                    sphere_lights=[0, 8], materials=mats, camera=cam)
-    cfg = RenderConfig(gi_model="path" if what == "path_gi" else "ambient")
+                    sphere_lights=[0, 8], materials=mats, camera=cam,
+                    tri_vertices=[[[2, 0, 0], [3, 0, 0], [2, 1, 0]]],
+                    tri_material=[0])
+    if what == "remat_names":   # only the occlusion residual is ported
+        cfg = RenderConfig(remat_names=("occlusion", "shade_terms"))
+    else:                       # the cluster route's compaction opt-in
+        cfg = RenderConfig(accel="cluster", closest_compact="on")
     with pytest.raises(NotImplementedError):
-        if what == "remat_names":   # only the occlusion residual is ported
-            cfg = RenderConfig(remat_names=("occlusion", "shade_terms"))
         fn = make_renderer(sc.static, cfg, 4, 4, device="cpu")
         fn(sc.params, PhiloxSampler(0, "cpu"))
