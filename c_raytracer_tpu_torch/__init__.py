@@ -13,14 +13,29 @@ Slices ported so far, forward and backward (gradients with respect to
 every ``SceneParams`` leaf, each round, light chunk and GI sample
 rematerialised): the dense render path (spheres, planes and triangles,
 ambient and path-traced GI), the mesh path (triangles through the
-Morton-cluster sweep with the visit-order kernel, shared-origin, union or
-per-ray soft shadows, sphere and triangle emitters), the chain integrator
-of opaque scenes and the stack integrator of transparent ones (refraction,
-the inside-object re-test, shadows tinted by the kt of transparent
-blockers), and the entry points ``make_renderer``,
-``make_host_tiled_renderer``, ``make_host_tiled_value_and_grad`` and
-``render``.  Everything else raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+Morton-cluster sweep with the visit-order kernel, any visit budget up to
+the cluster count, shared-origin, union or per-ray soft shadows, sphere
+and triangle emitters), the chain integrator of opaque scenes and the
+stack integrator of transparent ones (refraction, the inside-object
+re-test, shadows tinted by the kt of transparent blockers), and the entry
+points ``make_renderer``, ``make_host_tiled_renderer``,
+``make_host_tiled_value_and_grad`` and ``render``.  Around them: the
+reference's two programs, ``python -m c_raytracer_tpu_torch.cli.engine``
+(8-bit or raw float32 TIFF output, progressive checkpointed renders,
+the always-on spill warnings, ``--accel-report`` / ``--accel-tune``) and
+``python -m c_raytracer_tpu_torch.cli.postprocess`` (brighten, depth of
+field, mist), both on the card by default; the TIFF codec (``image/``),
+``render_progressive`` and ``render_spp_chunked``
+(``render/progressive.py``), the spill diagnostics and policy
+(``accel/traverse.py`` ``spill_counts``, ``shadow_spill_counts``;
+``accel/validate.py``) and the postprocessing ops (``postprocess/``).
+
+Still raising ``NotImplementedError``, each naming the ROADMAP item that
+brings it: primitive-range shards (``accel/intersect.py``
+``make_intersector``: multi-GPU), ``bvh_super_group`` and
+``closest_compact="on"`` (the same function: the super and sharded
+sweeps), and remat names other than ``("occlusion",)``
+(``core/remat.py`` ``check_names``).
 """
 
 __version__ = "0.1.0"

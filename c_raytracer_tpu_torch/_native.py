@@ -50,9 +50,9 @@ _SIGNATURES = {
     #  atten_kind, n_scal, stream)
     "crt_fused_shadow_chunk": ("fused_shadow.cu",
                                (_PTR,) * 4 + (_INT,) * 9 + (_PTR,)),
-    # (o, d, lo, hi, count_max_dist or NULL, cids, entry, spill, R, K, V,
-    #  cluster, warps, slice, stream)
-    "crt_visit_order": ("visit_order.cu", (_PTR,) * 8 + (_INT,) * 6 + (_PTR,)),
+    # (o, d, lo, hi, count_max_dist or NULL, cids, entry, spill, R, K,
+    #  V_total, col0, V, cluster, warps, slice, stream)
+    "crt_visit_order": ("visit_order.cu", (_PTR,) * 8 + (_INT,) * 8 + (_PTR,)),
 }
 
 

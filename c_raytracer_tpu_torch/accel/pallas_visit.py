@@ -16,8 +16,12 @@ id, with the per-ray spill count (overlaps beyond V) — the body of
   the boxes (the kernel merges the warps' lists by (key, id), which the
   CPU tests model in numpy).  The kernel's ring and shared-memory layout
   are its own compile-time constants; only the split is chosen here.
-  Lists of up to 64 live in registers, of 128 and 256 in shared memory;
-  a V above 256 is refused on the card.
+  Lists of up to 64 live in registers, of 128 and 256 in shared memory.
+* ``visit_passes`` — a V above 256, the largest compiled list, runs in
+  passes of up to 256 slots, one launch each: every pass after the first
+  admits only boxes after the previous pass's last slot in (key, id)
+  order, so the passes concatenate to the first V of the stable sort.
+  The card takes any V up to K, as the plain version does.
 
 The JAX package keeps its kernel behind ``RenderConfig.pallas_visit``
 (default "off"), a decision about its TPU toolchain, and its kernel route
@@ -44,6 +48,8 @@ from c_raytracer_tpu_torch import _native
 
 FLT_MAX = float(np.finfo(np.float32).max)
 LIST_SIZES = (8, 16, 32, 64, 128, 256)  # the kernel's compiled list sizes
+PASS_V = LIST_SIZES[-1]       # a launch's slots; a larger V runs in passes
+
 LANES = 32                    # rays per block: one per lane
 MAX_CLUSTER = 8               # the portable thread-block cluster size
 N_SM_H100 = 132
@@ -61,6 +67,7 @@ class VisitSplit:
     cluster: int
     groups: int
     slice: int
+    passes: int = 1
 
     def slices(self, K: int) -> list[tuple[int, int]]:
         """(start, end) of each warp's slice, in slice order: block rank
@@ -77,23 +84,30 @@ def warps_of(vm: int) -> int:
     return 8 if vm <= 32 else (4 if vm <= 128 else 2)
 
 
+def visit_passes(V: int) -> list[tuple[int, int]]:
+    """(first slot, slots) of each launch of a V-slot call: one pass up
+    to ``PASS_V``, above it passes of ``PASS_V`` and the rest."""
+    return [(c, min(PASS_V, V - c)) for c in range(0, V, PASS_V)]
+
+
 def visit_split(R: int, K: int, V: int, n_sm: int = N_SM_H100) -> VisitSplit:
     """The split of an (R rays, K boxes, V visits) call on a card of
     ``n_sm`` SMs: ``warps_of(VM)`` warps a block and the smallest cluster
     in 1, 2, 4, 8 that puts a block on each SM (R = 2048: 64 ray groups ×
     4); slices are multiples of 4 boxes, so every slice and ring tile
-    starts 16-byte aligned.  The kernel compiles lists of up to 256: a
-    larger V is refused (the CPU's plain version takes any V)."""
-    if not 1 <= V <= LIST_SIZES[-1]:
-        raise ValueError(f"visit_order: V={V} outside 1..{LIST_SIZES[-1]}, "
-                         f"the kernel's largest list on the card")
-    vm = next(v for v in LIST_SIZES if v >= V)
+    starts 16-byte aligned.  VM is the smallest compiled list that holds
+    V; a V above 256 runs in ``passes`` (``visit_passes``), and this is
+    the split of its first, a full list of 256 (a shorter last pass takes
+    the split of its own V).  Any V in 1..K is taken."""
+    if not 1 <= V <= K:
+        raise ValueError(f"visit_order: V={V} outside 1..K={K}")
+    vm = next(v for v in LIST_SIZES if v >= min(V, PASS_V))
     groups = -(-R // LANES)
     warps = warps_of(vm)
     cluster = next((c for c in (1, 2, 4) if groups * c >= n_sm), MAX_CLUSTER)
     per = -(-K // (warps * cluster))
     return VisitSplit(vm=vm, warps=warps, cluster=cluster, groups=groups,
-                      slice=-(-per // 4) * 4)
+                      slice=-(-per // 4) * 4, passes=len(visit_passes(V)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -149,19 +163,20 @@ def visit_order(o, d, lo, hi, V: int, count_max_dist=None):
         if x.data_ptr() % 16:
             raise ValueError(f"visit_order: {name} must start 16-byte "
                              f"aligned")
-    split = visit_split(R, K, V, _sm_count(o.device))
     cids = torch.empty((R, V), dtype=torch.int32, device=o.device)
     entry = torch.empty((R, V), dtype=torch.float32, device=o.device)
     spill = torch.empty((R,), dtype=torch.int32, device=o.device)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream(o.device).cuda_stream
-        err = _native.lib().crt_visit_order(
-            o.data_ptr(), d.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            None if count_max_dist is None else count_max_dist.data_ptr(),
-            cids.data_ptr(), entry.data_ptr(), spill.data_ptr(), R, K, V,
-            split.cluster, split.warps, split.slice, stream)
-    _native.check(err, "visit_order")
-    visit_order.launches += 1
+        for col0, v in visit_passes(V):
+            split = visit_split(R, K, v, _sm_count(o.device))
+            err = _native.lib().crt_visit_order(
+                o.data_ptr(), d.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                None if count_max_dist is None else count_max_dist.data_ptr(),
+                cids.data_ptr(), entry.data_ptr(), spill.data_ptr(), R, K, V,
+                col0, v, split.cluster, split.warps, split.slice, stream)
+            _native.check(err, "visit_order")
+            visit_order.launches += 1
     return cids, entry, spill
 
 

@@ -46,9 +46,12 @@ the gathered ``blk`` rows and from there, through ``pack_clusters``, into
 the triangle vertices.  The shadow sweeps return masks and counts only;
 shading runs them without autograd (render/shading.py).
 
+The diagnostics ``spill_counts`` and ``shadow_spill_counts`` (behind
+accel/validate.py) count exactly what the sweeps truncate, in pixel
+chunks that keep every (pixels, boxes) temporary near 1 GiB.
+
 Not ported yet, and refused where they would be taken (accel/intersect.py):
-``_visit_order_super``, ``pack_clusters_sharded``, and the diagnostics
-``spill_counts`` and ``shadow_spill_counts``.
+``_visit_order_super`` and ``pack_clusters_sharded``.
 """
 
 from __future__ import annotations
@@ -215,6 +218,111 @@ def _visit_limit(ok, dead_skip: bool) -> int:
     if not dead_skip or ok.shape[0] == 0:
         return ok.shape[1]
     return int(ok.sum(1).max())
+
+
+_CHUNK_ELEMS = 2 ** 28  # entries of one (rows, columns) float32 temporary
+
+
+def _row_chunks(n_rows: int, n_cols: int):
+    """Slices of at most ``_CHUNK_ELEMS // n_cols`` rows covering n_rows."""
+    step = max(1, _CHUNK_ELEMS // max(1, n_cols))
+    return [slice(i, min(i + step, n_rows)) for i in range(0, n_rows, step)]
+
+
+@torch.no_grad()
+def spill_counts(cs: ClusterSet, o, d, visits: int):
+    """Diagnostic: per-ray count of slab-overlapping clusters and how many
+    exceeded the visit budget (the closest-hit sweep's truncation), as
+    (n (R,), spill (R,)) int32.
+
+    The closest sweep prunes sorted visits by best-so-far t, so spill > 0
+    does NOT always mean a wrong hit — but spill == 0 *proves* the sweep
+    was exhaustive.  Used by accel/validate.py's spill policy."""
+    K = cs.lo.shape[0]
+    V = min(visits, K)
+    dd = torch.where(torch.abs(d) < 1e-30, 1e-30, d)
+    inv = 1.0 / dd
+    n = []
+    for rows in _row_chunks(o.shape[0], K):
+        oc, ic = o[rows], inv[rows]
+        tmin = tmax = None
+        # one axis at a time; max and min are exact in any order
+        for c in range(3):
+            t1 = (cs.lo[None, :, c] - oc[:, c, None]) * ic[:, c, None]
+            t2 = (cs.hi[None, :, c] - oc[:, c, None]) * ic[:, c, None]
+            lo_t, hi_t = torch.minimum(t1, t2), torch.maximum(t1, t2)
+            tmin = lo_t if tmin is None else torch.maximum(tmin, lo_t)
+            tmax = hi_t if tmax is None else torch.minimum(tmax, hi_t)
+        overlap = tmax >= torch.clamp(tmin, min=0.0)
+        n.append(overlap.sum(-1, dtype=torch.int32))
+    n = torch.cat(n)
+    return n, torch.clamp(n - V, min=0)
+
+
+@torch.no_grad()
+def shadow_spill_counts(cs: ClusterSet, origin, hull_lo, hull_hi,
+                        visits: int, k_short: int):
+    """Diagnostic: per-pixel spill of the shared-origin shadow sweep.
+
+    Returns (cluster_spill, tri_spill), int32 (P,): capsule-overlapping
+    clusters beyond the visit budget, and capsule-overlapping *triangles*
+    beyond the shortlist K (0 when the shortlist is disabled).  Unlike
+    closest hits, the shadow tint product needs EVERY transparent blocker
+    along the segment, so any spill on a transparent scene can lose kt
+    factors.  The capsule dot products are elementwise products summed
+    left to right (the JAX package's cluster test is an ``einsum``), so
+    the card and the CPU round them alike."""
+    K = cs.lo.shape[0]
+    V = min(visits, K)
+    center = 0.5 * (cs.lo + cs.hi)                          # (K, 3)
+    half_diag = 0.5 * _norm3(cs.hi - cs.lo)                 # (K,)
+    ecenter = 0.5 * (hull_lo + hull_hi)
+    erad = 0.5 * _norm3(hull_hi - hull_lo)
+    C = cs.bound.shape[1]
+    b = cs.bound.reshape(K * C, 4)
+    cen, rad = b[:, :3], b[:, 3]
+    cl_spill, tri_spill = [], []
+    for rows in _row_chunks(origin.shape[0], K * C if k_short else K):
+        org = origin[rows].detach()
+        seg = ecenter[None] - org                           # (p, 3)
+        seglen2 = torch.clamp(_sum3(seg * seg), min=1e-30)
+        rel = [center[None, :, c] - org[:, c, None] for c in range(3)]
+        s = torch.clamp((rel[0] * seg[:, 0, None] + rel[1] * seg[:, 1, None]
+                         + rel[2] * seg[:, 2, None]) / seglen2[:, None],
+                        0.0, 1.0)
+        d2 = 0.0
+        for c in range(3):
+            r = rel[c] - s * seg[:, c, None]
+            d2 = d2 + r * r
+        margin = half_diag[None] + s * erad
+        n_cl = (d2 <= margin * margin).sum(-1, dtype=torch.int32)
+        cl_spill.append(torch.clamp(n_cl - V, min=0))
+        if not k_short:
+            continue
+        # triangle-level: the capsule test of shadow_shortlist over ALL
+        # triangles' bounding spheres (the true candidate count the
+        # shortlist competes for)
+        seglen = v3m.sqrt(seglen2)
+        rx = cen[None, :, 0] - org[:, 0, None]
+        ry = cen[None, :, 1] - org[:, 1, None]
+        rz = cen[None, :, 2] - org[:, 2, None]
+        dot = (rx * seg[:, 0, None] + ry * seg[:, 1, None]
+               + rz * seg[:, 2, None])
+        st = torch.clamp(dot / seglen2[:, None], 0.0, 1.0)
+        cx = rx - st * seg[:, 0, None]
+        cy = ry - st * seg[:, 1, None]
+        cz = rz - st * seg[:, 2, None]
+        td2 = cx * cx + cy * cy + cz * cz
+        s_hi = torch.clamp((dot + rad[None] * seglen[:, None])
+                           / seglen2[:, None], 0.0, 1.0)
+        tmargin = rad[None] + s_hi * erad
+        t_overlap = (td2 <= tmargin * tmargin) & (rad[None] >= 0)
+        n_tri = t_overlap.sum(-1, dtype=torch.int32)
+        tri_spill.append(torch.clamp(n_tri - min(k_short, V * C), min=0))
+    cl_spill = torch.cat(cl_spill)
+    if not k_short:
+        return cl_spill, torch.zeros_like(cl_spill)
+    return cl_spill, torch.cat(tri_spill)
 
 
 def _mt_block(blk, o, d):

@@ -116,15 +116,23 @@ def path_key(seed: int, path: tuple) -> tuple[int, int]:
 
 
 class PhiloxSampler:
-    """Uniforms for a sample path from the Philox stream of ``seed``."""
+    """Uniforms for a sample path from the Philox stream of ``seed``.
 
-    def __init__(self, seed: int, device):
+    ``fold_in(i)`` derives the sampler of a progressive render's chunk
+    ``i``, as the JAX package derives ``fold_in(key, i)``: every path it
+    draws carries the prefix ``(i,)`` of chunk indices."""
+
+    def __init__(self, seed: int, device, prefix: tuple = ()):
         self.seed = int(seed)
         self.device = torch.device(device)
+        self.prefix = tuple(int(i) for i in prefix)
+
+    def fold_in(self, i: int) -> "PhiloxSampler":
+        return PhiloxSampler(self.seed, self.device, self.prefix + (i,))
 
     def uniform(self, path: tuple, shape) -> torch.Tensor:
-        return philox_uniform(path_key(self.seed, path), shape,
-                              device=self.device)
+        return philox_uniform(path_key(self.seed, self.prefix + tuple(path)),
+                              shape, device=self.device)
 
 
 @dataclasses.dataclass(frozen=True)

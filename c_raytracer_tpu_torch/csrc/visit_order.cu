@@ -56,6 +56,17 @@
 // only; a static_assert holds the largest block of every list size to the
 // 227 KB an H100 block may take.
 //
+// A V above the largest compiled list (256) runs in passes of up to 256
+// slots, one launch each (the Python wrapper, pallas_visit.visit_passes):
+// a pass writes slots [col0, col0 + its V) of the (R, V) outputs and
+// admits to its lists only boxes after the previous pass's last slot in
+// (key, id) order, read from the outputs that the previous launch on the
+// same stream wrote.  (key, id) is a total order of a ray's boxes, so the
+// passes together give the first V of the stable sort, ties included; a
+// pass whose bound is an empty slot (FLT_MAX) admits nothing.  Every pass
+// counts all overlaps and writes the same spill, counted against the
+// whole V.
+//
 // Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 10;
 // PERF.md): 0.054 ms at R = 2048, K = 8,556, V = 16, against 0.44 ms for
 // the earlier design of one warp per block scanning all K boxes.  VM = 64
@@ -64,8 +75,8 @@
 //
 // C ABI (bound with ctypes in c_raytracer_tpu_torch/_native.py): returns
 // the launch's cudaError_t (0 means launched), or cudaErrorInvalidValue for
-// a V above the largest compiled list (256) or a split the kernel does not
-// take.
+// a pass above the largest compiled list (256) or outside the V slots, or
+// a split the kernel does not take.
 
 #include <cfloat>
 #include <cstdint>
@@ -90,8 +101,12 @@ struct Params {
   int32_t* cids;
   float* entry;
   int32_t* spill;
-  int R, K, V;
-  int slice;  // boxes per warp slice, a multiple of 4
+  int R, K;
+  int V;        // this pass's slots
+  int V_total;  // the outputs' slots a ray, the spill's budget
+  int col0;     // this pass's first slot; from 1 on, the previous slot
+                // bounds the boxes a pass admits
+  int slice;    // boxes per warp slice, a multiple of 4
 };
 
 // Whether a list of size VM lives in shared memory (else in registers).
@@ -278,7 +293,9 @@ __device__ __forceinline__ void visit(float lx, float ly, float lz, float hx,
                                       const float (&org)[3],
                                       const float (&inv)[3], bool live,
                                       bool cap, float max_dist,
-                                      List<VM>& list, int& counted) {
+                                      bool bounded, float after_key,
+                                      int after_id, List<VM>& list,
+                                      int& counted) {
   float t1 = (lx - org[0]) * inv[0];
   float t2 = (hx - org[0]) * inv[0];
   float tmin = fminf(t1, t2);
@@ -294,7 +311,9 @@ __device__ __forceinline__ void visit(float lx, float ly, float lz, float hx,
   const float e = fmaxf(tmin, 0.0f);
   if (live && tmax >= e) {
     counted += (!cap || e < max_dist) ? 1 : 0;
-    list.insert(e, b);
+    if (!bounded || e > after_key || (e == after_key && b > after_id)) {
+      list.insert(e, b);
+    }
   }
 }
 
@@ -359,6 +378,15 @@ visit_order_kernel(const Params p) {
     }
     if (p.count_max_dist != nullptr) max_dist = p.count_max_dist[r];
   }
+  // a later pass: the previous pass's last slot, an exclusive lower bound
+  const bool bounded = p.col0 > 0;
+  float after_key = 0.0f;
+  int after_id = 0;
+  if (bounded && r < p.R) {
+    const int64_t last = static_cast<int64_t>(r) * p.V_total + p.col0 - 1;
+    after_key = p.entry[last];
+    after_id = p.cids[last];
+  }
   const bool live = r < p.R && finite;
   const bool cap = p.count_max_dist != nullptr;
   // the same for every warp of the cluster: they hold the same 32 rays
@@ -401,18 +429,22 @@ visit_order_kernel(const Params p) {
       const float4 h1 = reinterpret_cast<const float4*>(shi + 3 * b)[1];
       const float4 h2 = reinterpret_cast<const float4*>(shi + 3 * b)[2];
       visit<VM>(l0.x, l0.y, l0.z, h0.x, h0.y, h0.z, b0 + b, org, inv, live,
-                cap, max_dist, list, counted);
+                cap, max_dist, bounded, after_key, after_id, list,
+                counted);
       visit<VM>(l0.w, l1.x, l1.y, h0.w, h1.x, h1.y, b0 + b + 1, org, inv,
-                live, cap, max_dist, list, counted);
+                live, cap, max_dist, bounded, after_key, after_id, list,
+                counted);
       visit<VM>(l1.z, l1.w, l2.x, h1.z, h1.w, h2.x, b0 + b + 2, org, inv,
-                live, cap, max_dist, list, counted);
+                live, cap, max_dist, bounded, after_key, after_id, list,
+                counted);
       visit<VM>(l2.y, l2.z, l2.w, h2.y, h2.z, h2.w, b0 + b + 3, org, inv,
-                live, cap, max_dist, list, counted);
+                live, cap, max_dist, bounded, after_key, after_id, list,
+                counted);
     }
     for (; b < nb; ++b) {
       visit<VM>(slo[3 * b], slo[3 * b + 1], slo[3 * b + 2], shi[3 * b],
                 shi[3 * b + 1], shi[3 * b + 2], b0 + b, org, inv, live, cap,
-                max_dist, list, counted);
+                max_dist, bounded, after_key, after_id, list, counted);
     }
     __syncwarp();  // every lane is done with the stage before its refill
     if (t + S < n_tiles) {
@@ -470,8 +502,8 @@ visit_order_kernel(const Params p) {
       }
     }
     if (pos < p.V && r < p.R) {
-      p.cids[static_cast<int64_t>(r) * p.V + pos] = i;
-      p.entry[static_cast<int64_t>(r) * p.V + pos] = k;
+      p.cids[static_cast<int64_t>(r) * p.V_total + p.col0 + pos] = i;
+      p.entry[static_cast<int64_t>(r) * p.V_total + p.col0 + pos] = k;
     }
   }
   if (rank == 0 && r < p.R) {
@@ -481,10 +513,10 @@ visit_order_kernel(const Params p) {
       c += cluster.map_shared_rank(bcnt, q)[lane];
     }
     for (int j = min(n, p.V) + warp; j < p.V; j += W) {
-      p.cids[static_cast<int64_t>(r) * p.V + j] = 0;
-      p.entry[static_cast<int64_t>(r) * p.V + j] = FLT_MAX;
+      p.cids[static_cast<int64_t>(r) * p.V_total + p.col0 + j] = 0;
+      p.entry[static_cast<int64_t>(r) * p.V_total + p.col0 + j] = FLT_MAX;
     }
-    if (warp == 0) p.spill[r] = c > p.V ? c - p.V : 0;
+    if (warp == 0) p.spill[r] = c > p.V_total ? c - p.V_total : 0;
   }
   cluster.sync();  // no block leaves while another reads its lists
 }
@@ -515,15 +547,18 @@ cudaError_t launch(const Params& p, int groups, int C, int W,
 
 }  // namespace
 
-// (o, d, lo, hi, count_max_dist or NULL, cids, entry, spill, R, K, V,
-//  cluster, warps, slice, stream)
+// (o, d, lo, hi, count_max_dist or NULL, cids, entry, spill, R, K,
+//  V_total, col0, V, cluster, warps, slice, stream): one pass, slots
+//  [col0, col0 + V) of the (R, V_total) outputs
 extern "C" int crt_visit_order(const void* o, const void* d, const void* lo,
                                const void* hi, const void* count_max_dist,
                                void* cids, void* entry, void* spill, int R,
-                               int K, int V, int cluster, int warps,
-                               int slice, void* stream) {
+                               int K, int V_total, int col0, int V,
+                               int cluster, int warps, int slice,
+                               void* stream) {
   if (R <= 0) return static_cast<int>(cudaGetLastError());
-  if (V < 1 || K < 1 || cluster < 1 || cluster > 8 || warps < 1 ||
+  if (V < 1 || col0 < 0 || col0 + V > V_total || K < 1 || cluster < 1 ||
+      cluster > 8 || warps < 1 ||
       slice < 4 || slice % 4 != 0 ||
       static_cast<int64_t>(slice) * warps * cluster < K) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -540,6 +575,8 @@ extern "C" int crt_visit_order(const void* o, const void* d, const void* lo,
   p.R = R;
   p.K = K;
   p.V = V;
+  p.V_total = V_total;
+  p.col0 = col0;
   p.slice = slice;
   const int groups = (R + kLanes - 1) / kLanes;
   auto s = static_cast<cudaStream_t>(stream);

@@ -36,7 +36,19 @@ and a forward+backward step (21); the host-tiled renderer against
 make_renderer, bit for bit (22); and the flagship, bench.py's scene5
 value-and-grad on the glass stand-in (64x64, 24 lights, spp 4,
 light_chunk 8), one host-tiled frame and one host-tiled value-and-grad
-step, with card against CPU grads at 16x16 (23).  Each phase prints one
+step, with card against CPU grads at 16x16 (23).  Phases 24-28 drive the
+reference's two programs: kernel 3 at lists of 384, 512 and 1024 (passes
+of 256) on the mesh and glass stand-ins' boxes, bit-equal to plain (24);
+the engine CLI as a subprocess on the default device, the dense stand-in
+at 1024x1024 raw and 8-bit, its files against the in-process frame (25);
+a progressive 1024x1024 render stopped after 2 of 4 checkpointed chunks
+and resumed, against the uninterrupted one, and render_spp_chunked of
+dense path GI against the single call (26); --accel-report on the mesh
+stand-in at 512x512 and --accel-tune on the glass stand-in at 64x64
+through the engine's main, and the card's spill reports against the
+CPU's at 64x64 (27); the postprocess CLI on phase 25's raw file, card
+against CPU, and the reference's postprocess goldens on the card (28).
+Each phase prints one
 line or a few; any failed check raises, so the script exits non-zero and
 prints no result.  The last two lines are the kernels' JSON summary and
 the run's result line.  The profile of the dense forward+backward step is
@@ -57,11 +69,17 @@ It imports torch, numpy and the port only (never JAX).
 from __future__ import annotations
 
 import argparse
+import ast
 import collections
+import contextlib
 import dataclasses
+import io
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -83,12 +101,14 @@ from c_raytracer_tpu_torch.render.integrator import GI_TAG
 from c_raytracer_tpu_torch.render.camera import primary_rays
 from c_raytracer_tpu_torch.scene import load_scene, params_to_torch
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 SCENE = "scenes/spheres_opaque.json"
 MESH_SCENE = "scenes/meshes_opaque.json"
 MESH_RES = 512
 MESH_TILE = 2048      # the auto tile of a cluster scene
 GLASS_SCENE = "scenes/meshes_glass.json"
 GLASS_RES = 64
+GLASS_FRAMES = 2      # timed glass frames: two keep the run within its time
 EXAMPLE_SCENE = "scenes/example.json"
 GLASS_LISTS = (64, 128, 256)   # kernel 3's list sizes on the glass path
 # path GI at bench.py:97's settings, and bench.py:251-285's flagship (its
@@ -179,6 +199,35 @@ def device_ms(fn, n: int = 50, tries: int = 3) -> float:
             return us / (count if len(kernels) == 1 else n) / 1e3
         print(f"[phase 10] profile {attempt} of {tries}: {what}", flush=True)
     check(False, what)
+
+
+def pass_ms(fn, V: int, n: int = 50, tries: int = 3) -> float:
+    """Device milliseconds per call of kernel 3 at V slots, ``fn()`` one
+    such call: under torch.profiler, the mean time a launch of each
+    compiled list size, summed over the call's passes
+    (``pallas_visit.visit_passes``).  Means, not sums, so that records the
+    profiler drops do not count as time saved."""
+    vms = [pallas_visit.visit_split(1, V, v).vm
+           for _, v in pallas_visit.visit_passes(V)]
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        means = {e.key: e.self_device_time_total / e.count / 1e3
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.count >= n // 5}
+        keys = [[k for k in means
+                 if "visit_order_kernel" in k and f"<{vm}>" in k]
+                for vm in vms]
+        if all(len(k) == 1 for k in keys):
+            return sum(means[k[0]] for k in keys)
+        print(f"[phase 24] profile {attempt} of {tries}: {means}",
+              flush=True)
+    check(False, f"kernel 3 passes {vms}: no profile")
 
 
 def paired(first, second, timer) -> tuple[list[float], list[float]]:
@@ -813,6 +862,401 @@ def gi_phases(sc, gsc, dev, seed, gen, n_sm) -> dict:
     return out
 
 
+BIG_LISTS = (384, 512, 1024)   # kernel 3 above 256: passes of 256
+CLI_RES = 1024                 # the engine's and postprocess's frame
+
+
+def big_list_phase(mesh, glass, glass_rec, gsc, dev, gen, n_sm, seed):
+    """Phase 24: kernel 3 at V = 384, 512 and 1024 (passes of 256) on the
+    mesh and glass stand-ins' boxes, bit-equal to the plain version on
+    aimed rays with and without count_max_dist and on boxes grown so that
+    every ray overlaps more than 1024 of them; device ms on the main
+    path's first-round rays beside V = 256, and the launches of a glass
+    frame at bvh_visits=512.  Returns the V = 512 record."""
+    checks = {}
+    timing = {}
+    err = 0.0
+    for name, (o1, d1, lo, hi) in (("mesh", mesh), ("glass", glass)):
+        K = lo.shape[0]
+        o, d = aimed_rays(lo, hi, MESH_TILE, gen)
+        o, d = o.contiguous(), d.contiguous()
+        cmd = torch.rand((MESH_TILE,), generator=gen, device=dev) * 4
+        grow = 0.5 * (hi.max(0).values - lo.min(0).values)
+        lo_f, hi_f = (lo - grow).contiguous(), (hi + grow).contiguous()
+        n_f = int((pallas_visit.visit_order_reference(
+            o, d, lo_f, hi_f, 1)[2] + 1).min())
+        check(n_f > max(BIG_LISTS), f"{name} grown boxes: every ray "
+                                    f"overlaps {n_f} > {max(BIG_LISTS)}")
+        for v in BIG_LISTS + (K,):
+            got = [compare_visit(o, d, lo, hi, v),
+                   compare_visit(o, d, lo, hi, v, cmd),
+                   compare_visit(o, d, lo_f, hi_f, v)]
+            checks[(name, v)] = [(r[0], r[1]) for r in got]
+            err = max([err] + [r[2] for r in got])
+        live = int((torch.isfinite(o1).all(1) & torch.isfinite(d1).all(1))
+                   .sum())
+        for v in (256,) + BIG_LISTS:
+            def run(v=v, o1=o1, d1=d1, lo=lo, hi=hi):
+                return pallas_visit.visit_order(o1, d1, lo, hi, v)
+            passes = len(pallas_visit.visit_passes(v))
+            rec = time_line(
+                f"visit order {name} first round R={MESH_TILE} K={K} V={v} "
+                f"({passes} passes)",
+                [pass_ms(run, v), pass_ms(run, v)],
+                bound_ms(4 * (6 * MESH_TILE + 6 * K + 2 * MESH_TILE * v
+                              + MESH_TILE), VISIT_OPS_PER_BOX * live * K),
+                split=str(pallas_visit.visit_split(MESH_TILE, K, v, n_sm)))
+            rec["plain_ms"] = device_ms(
+                lambda v=v, o1=o1, d1=d1, lo=lo, hi=hi:
+                pallas_visit.visit_order_reference(o1, d1, lo, hi, v), 10)
+            timing[(name, v)] = rec
+    # a glass frame at bvh_visits=512 (20 light samples: the closest-hit
+    # calls do not depend on the count) for its launches a frame
+    pallas_visit.visit_order.launches = 0
+    make_renderer(with_lights(gsc, 20), RenderConfig(bvh_visits=512),
+                  GLASS_RES, GLASS_RES, device=dev)(
+        gsc.params, rng.PhiloxSampler(seed, dev))
+    torch.cuda.synchronize()
+    n512 = pallas_visit.visit_order.launches
+    check(n512 > 0 and n512 % 2 == 0, f"V=512 frame launches {n512}")
+    phase(24, f"visit-order kernel bit-equal to plain above 256 (ok slots, "
+              f"spill max) for aimed rays, with count_max_dist, and grown "
+              f"boxes (every ray > {max(BIG_LISTS)} overlaps): "
+              f"{ {f'{k[0]} V={k[1]}': c for k, c in checks.items()} }")
+    phase(24, "device ms / bound ms / plain ms, first-round rays: " + "; ".join(
+        f"{k[0]} V={k[1]} {r['device_ms']:.6f} / {r['bound_ms']:.6f} / "
+        f"{r['plain_ms']:.6f}" for k, r in timing.items())
+        + f"; glass V=256 in phase 14: {glass_rec[256]['device_ms']:.6f}; "
+        f"launches of a glass {GLASS_RES}x{GLASS_RES} frame at "
+        f"bvh_visits=512: {n512} (2 passes a call)")
+    rec = dict(timing[("glass", 512)], launches_per_frame=n512,
+               max_abs_err=err,
+               mesh_device_ms=timing[("mesh", 512)]["device_ms"],
+               by_v={f"{k[0]} V={k[1]}": {x: r[x] for x in (
+                   "device_ms", "bound_ms", "plain_ms")}
+                   for k, r in timing.items()})
+    return rec
+
+
+def run_cli(module: str, args, what: str):
+    """``python -m <module> <args>`` from the repository root on the
+    default device: (wall seconds, its log lines); a non-zero exit
+    raises."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *map(str, args)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{what}: exit {proc.returncode}\n"
+                                f"{proc.stdout}\n{proc.stderr}")
+    return secs, proc.stderr.strip().splitlines()
+
+
+def engine_in_process(args):
+    """The engine CLI's ``main`` in this process, its log captured: (exit
+    code, log lines, launches by kernel, wall seconds)."""
+    from c_raytracer_tpu_torch.cli import engine
+    fns = {"philox_uniform": rng.philox_uniform,
+           "fused_shadow_chunk": fused_shadow.fused_chunk,
+           "visit_order": pallas_visit.visit_order}
+    for fn in fns.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(buf):
+        rc = engine.main([str(a) for a in args])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (rc, buf.getvalue().strip().splitlines(),
+            {k: fn.launches for k, fn in fns.items()}, secs)
+
+
+def log_value(lines, pattern: str, what: str):
+    """The first match of ``pattern`` in the log lines."""
+    for line in lines:
+        m = re.search(pattern, line)
+        if m:
+            return m
+    check(False, f"{what}: no log line matches {pattern!r}")
+
+
+def spill_of(lines) -> dict:
+    """The spill maxima the engine's guard reported (0 when silent)."""
+    out = {"shadow": 0.0, "visit": 0.0}
+    for line in lines:
+        m = re.search(r"WARNING: (shadow|closest-hit) visit budget EXCEEDED "
+                      r"by up to (\d+)", line)
+        if m:
+            out["shadow" if m.group(1) == "shadow" else "visit"] = float(
+                m.group(2))
+    return out
+
+
+def engine_phase(sc, dev, tmp):
+    """Phase 25: the engine CLI as a user runs it, on the default device:
+    the dense stand-in at 1024x1024, raw and 8-bit, against the
+    in-process frame.  Returns the frame (image, z) on the card."""
+    from c_raytracer_tpu_torch.image import (quantize_rgb8, read_tiff,
+                                             write_tiff_rgb8)
+    raw = f"{tmp}/engine_raw.tif"
+    out8 = f"{tmp}/engine_8bit.tif"
+    secs, lines = run_cli("c_raytracer_tpu_torch.cli.engine",
+                          [SCENE, raw, CLI_RES, CLI_RES, "-f", "--stats"],
+                          "engine -f")
+    for line in lines:
+        print(f"[phase 25] engine: {line}", flush=True)
+    launches = log_value(lines, r"Kernel launches: (.*)\.", "launches")
+    check(all(int(n) > 0 for n in re.findall(
+        r"(?:philox_uniform|fused_shadow_chunk) (\d+)", launches.group(1))),
+        f"engine launches {launches.group(1)}")
+    secs8, lines8 = run_cli("c_raytracer_tpu_torch.cli.engine",
+                            [SCENE, out8, CLI_RES, CLI_RES], "engine 8-bit")
+    img, z = make_renderer(sc.static, RenderConfig(), CLI_RES, CLI_RES,
+                           device=dev)(sc.params, rng.PhiloxSampler(0, dev))
+    torch.cuda.synchronize()
+    got, gz = read_tiff(raw)
+    img_np, z_np = img.cpu().numpy(), z.cpu().numpy()
+    check(got.tobytes() == img_np.tobytes(), "engine raw image == frame")
+    check(gz.tobytes() == z_np.reshape(-1).tobytes(), "engine raw z == frame")
+    want8 = f"{tmp}/want_8bit.tif"
+    write_tiff_rgb8(want8, img_np)
+    with open(out8, "rb") as f, open(want8, "rb") as g:
+        check(f.read() == g.read(), "engine 8-bit file == quantize(frame)")
+    q = quantize_rgb8(img_np)
+    frame_s = float(log_value(lines, r"in ([0-9.]+)s:", "frame s").group(1))
+    t_end = float(lines[-1][1:9])
+    phase(25, f"engine {SCENE} {CLI_RES}x{CLI_RES} -f --stats as a "
+              f"subprocess on the default device: exit 0, wall s "
+              f"{secs:.6f}: {secs - t_end:.3f} s before its log starts "
+              f"(python, the torch import), the frame {frame_s} s by its "
+              f"log, saving to terminating "
+              f"{t_end - float(lines[-2][1:9]):.3f} s; raw "
+              f"image and z bit-equal to the in-process frame; 8-bit run "
+              f"wall s {secs8:.6f}, its file byte-equal to quantize_rgb8 of "
+              f"the frame ({int((q == 255).sum())} channels at 255)")
+    return img, z, raw
+
+
+def progressive_phase(sc, dev, tmp):
+    """Phase 26: a checkpointed progressive render of the dense stand-in
+    at 1024x1024, stopped after 2 of 4 chunks and resumed, against the
+    uninterrupted render; the spp-chunked dense GI frame at 256x256
+    against the single call."""
+    import numpy as np
+
+    from c_raytracer_tpu_torch.image import write_tiff_raw
+    from c_raytracer_tpu_torch.render import (render_progressive,
+                                              render_spp_chunked)
+    fns = {"philox_uniform": rng.philox_uniform,
+           "fused_shadow_chunk": fused_shadow.fused_chunk}
+    cfg = RenderConfig()
+    ck = f"{tmp}/progressive.tif"
+
+    def timed(**kw):
+        stamps = [time.perf_counter()]
+
+        def log(msg, *a):
+            if msg.startswith("Progressive chunk"):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+        out = render_progressive(sc, cfg, CLI_RES, CLI_RES,
+                                 rng.PhiloxSampler(0, dev), device=dev,
+                                 chunks=4, log=log, **kw)
+        return out, [b - a for a, b in zip(stamps, stamps[1:])]
+
+    for fn in fns.values():
+        fn.launches = 0
+    (full, full_z), full_s = timed()
+    (_, _), part_s = timed(checkpoint=ck, resume=False, _stop_after=2)
+    (resumed, rz), resume_s = timed(checkpoint=ck, resume=True)
+    launches = {k: fn.launches for k, fn in fns.items()}
+    check(all(n > 0 for n in launches.values()), f"launches {launches}")
+    check(len(resume_s) == 2, f"resumed {len(resume_s)} chunks")
+    check(bool(np.isfinite(full).all()) and full.max() > 0,
+          "progressive frame finite and lit")
+    rel = np.abs(resumed - full) / np.maximum(np.abs(full), 1e-30)
+    rel = float(np.where(full == resumed, 0.0, rel).max())
+    check(rel <= 1e-6, f"resumed vs uninterrupted: relative {rel}")
+    check(np.array_equal(rz, full_z), "resumed z")
+    wsecs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        write_tiff_raw(ck, full, full_z)
+        wsecs.append(time.perf_counter() - t0)
+    phase(26, f"progressive {CLI_RES}x{CLI_RES} stand-in, 4 chunks: s a "
+              f"chunk {[round(x, 6) for x in full_s]} uninterrupted, "
+              f"{[round(x, 6) for x in part_s]} with the checkpoint "
+              f"(stopped after 2), {[round(x, 6) for x in resume_s]} "
+              f"resumed; raw TIFF checkpoint write s "
+              f"{[round(x, 6) for x in wsecs]}; resumed vs uninterrupted: "
+              f"largest relative difference {rel:.3e} (gate 1e-6), z equal; "
+              f"launches {launches}")
+    single = make_renderer(sc.static, GI_CFG, 256, 256, device=dev)(
+        sc.params, rng.PhiloxSampler(0, dev))[0].cpu()
+    for fn in fns.values():
+        fn.launches = 0
+    chunked, _ = render_spp_chunked(sc, GI_CFG, 256, 256,
+                                    rng.PhiloxSampler(0, dev), device=dev,
+                                    spp_chunks=2)
+    launches = {k: fn.launches for k, fn in fns.items()}
+    check(all(n > 0 for n in launches.values()), f"launches {launches}")
+    chunked = torch.from_numpy(chunked)
+    fin = torch.isfinite(single)
+    check(torch.equal(fin, torch.isfinite(chunked)), "spp chunks: finite")
+    err = ((chunked[fin] - single[fin]).abs()
+           / (1e-6 + 1e-4 * single[fin].abs())).max().item()
+    check(err <= 1.0, f"spp chunks vs single call: {err} of rtol 1e-4")
+    phase(26, f"render_spp_chunked dense 256x256 path GI spp 4 in 2 chunks "
+              f"equals the single call within rtol 1e-4 / atol 1e-6 (worst "
+              f"{err:.3f} of the tolerance; {int((~fin).sum())} non-finite "
+              f"channels in both); launches {launches}")
+
+
+def accel_phase(msc, gsc, mesh_default, glass_default, dev, tmp, n_sm):
+    """Phase 27: --accel-report on the mesh stand-in at 512x512 and
+    --accel-tune on the glass stand-in at 64x64 through the engine's main
+    in this process; the card's reports at 64x64 against the CPU's."""
+    rc, lines, mlaunch, _ = engine_in_process(
+        [MESH_SCENE, f"{tmp}/mesh.tif", MESH_RES, MESH_RES, "--accel-report",
+         "--stats", "--device", "cuda"])
+    check(rc == 0, f"engine --accel-report exit {rc}")
+    for line in lines:
+        print(f"[phase 27] engine mesh: {line}", flush=True)
+    m = log_value(lines, r"^\[([0-9.]+)\].*Accel spill report: (.*)\.$",
+                  "report")
+    mrep = ast.literal_eval(m.group(2))
+    t_bvh = float(log_value(lines, r"^\[([0-9.]+)\].*Generating the BVH",
+                            "bvh").group(1))
+    mframe = float(log_value(lines, r"in ([0-9.]+)s:", "frame").group(1))
+    check(mlaunch["visit_order"] > 0 and mlaunch["philox_uniform"] > 0,
+          f"mesh launches {mlaunch}")
+    phase(27, f"mesh {MESH_RES}x{MESH_RES} --accel-report: report s "
+              f"{float(m.group(1)) - t_bvh:.3f}; {mrep}; frame s at the "
+              f"default budgets {mframe} (phase 9: {mesh_default[0]:.6f}), "
+              f"spill {spill_of(lines)} (phase 9: {mesh_default[1]}); "
+              f"launches {mlaunch}")
+    rc, lines, glaunch, _ = engine_in_process(
+        [GLASS_SCENE, f"{tmp}/glass.tif", GLASS_RES, GLASS_RES,
+         "--accel-tune", "--stats", "--device", "cuda"])
+    check(rc == 0, f"engine --accel-tune exit {rc}")
+    for line in lines:
+        print(f"[phase 27] engine glass: {line}", flush=True)
+    t = log_value(lines, r"Accel auto-tune: visits=(\d+) shadow_visits=(\d+) "
+                         r"shortlist=(\d+)", "tune")
+    v, sv = int(t.group(1)), int(t.group(2))
+    grep = ast.literal_eval(log_value(lines, r"Accel spill report: (.*)\.$",
+                                      "report").group(1))
+    gframe = float(log_value(lines, r"in ([0-9.]+)s:", "frame").group(1))
+    K = grep["n_clusters"]
+    split = pallas_visit.visit_split(MESH_TILE, K, v, n_sm)
+    check(glaunch["visit_order"] > 0, f"glass launches {glaunch}")
+    phase(27, f"glass {GLASS_RES}x{GLASS_RES} (100 lights) --accel-tune: "
+              f"report {grep}; tuned visits {v}, shadow visits {sv}; frame "
+              f"s at the tuned budgets {gframe} (phase 16, defaults: "
+              f"{glass_default[0]:.6f}); spill at the tuned budgets "
+              f"{spill_of(lines)} (defaults: {glass_default[1]}); kernel 3 "
+              f"at V={v}: list {split.vm}, {split.passes} pass(es) a call, "
+              f"{glaunch['visit_order']} launches; launches {glaunch}")
+    from c_raytracer_tpu_torch.accel.validate import spill_report
+    side = {}
+    for name, scene in (("mesh", msc), ("glass", gsc)):
+        card, cpu = (spill_report(scene, RenderConfig(), 64, 64, device=d)
+                     for d in (dev, torch.device("cpu")))
+        check(card["closest"] == cpu["closest"],
+              f"{name} 64x64 closest counts: card {card['closest']} cpu "
+              f"{cpu['closest']}")
+        for a, b in zip(card["shadow"], cpu["shadow"]):
+            for k in ("cluster_spill_pixels", "tri_spill_pixels"):
+                check(abs(a[k] - b[k]) <= 1e-3 * 64 * 64,
+                      f"{name} 64x64 shadow {k}: card {a[k]} cpu {b[k]}")
+        side[name] = [{k: (a[k], b[k]) for k in a if k.endswith(
+            ("_max", "_pixels"))} for a, b in zip(card["shadow"],
+                                                  cpu["shadow"])]
+    phase(27, f"spill reports at 64x64, card vs CPU: closest counts equal; "
+              f"shadow (card, cpu) {side}")
+    return dict(mesh_report=mrep, glass_report=grep, tuned=(v, sv),
+                glass_tuned_frame_s=gframe)
+
+
+def postprocess_phase(img, z, raw, dev, tmp):
+    """Phase 28: the postprocess CLI on phase 25's raw file on the card,
+    against the same command on the CPU; depth_of_field alone; the
+    reference goldens computed on the card."""
+    import numpy as np
+
+    from c_raytracer_tpu_torch.image import quantize_rgb8, read_tiff
+    from c_raytracer_tpu_torch.postprocess import ops
+    zf = z[z > 0]
+    focus = float(zf.median())
+    scale = 17.0 / float((z - focus).abs().max())
+    bias = -scale * focus
+    r_max = int(ops.coc_radius(z, scale, bias).max())
+    check(r_max >= 8, f"largest CoC radius {r_max}")
+    start, depth = 0.5 * focus, float(zf.max() - zf.min())
+    flags = ["-b", "1.5", "--dof", repr(scale), repr(bias), "--mist",
+             repr(start), repr(depth), "lin", "0.5", "0.6", "0.7"]
+    secs, lines = run_cli("c_raytracer_tpu_torch.cli.postprocess",
+                          [raw, f"{tmp}/pp_card.tif", *flags], "postprocess")
+    for line in lines:
+        print(f"[phase 28] postprocess: {line}", flush=True)
+    cpu_secs, _ = run_cli("c_raytracer_tpu_torch.cli.postprocess",
+                          [raw, f"{tmp}/pp_cpu.tif", *flags, "--device",
+                           "cpu"], "postprocess --device cpu")
+    a, _ = read_tiff(f"{tmp}/pp_card.tif")
+    b, _ = read_tiff(f"{tmp}/pp_cpu.tif")
+    diff = np.abs(np.round(a * 255) - np.round(b * 255)).max(-1)
+    share = float((diff <= 1).mean())
+    check(share >= 0.999, f"postprocess card vs CPU: {share} within 1")
+    bright = ops.brighten(img, 1.5)
+    dof_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.depth_of_field(bright, z, scale, bias)
+        torch.cuda.synchronize()
+        dof_s.append(time.perf_counter() - t0)
+    phase(28, f"postprocess -b 1.5 --dof {scale:.6g} {bias:.6g} --mist on "
+              f"the {CLI_RES}x{CLI_RES} raw file: largest CoC radius "
+              f"{r_max} px ({len(ops.disc_offsets(r_max))} offsets); card "
+              f"wall s {secs:.6f}, CPU wall s {cpu_secs:.6f}; 8-bit card vs "
+              f"CPU {share:.6f} of pixels within 1 (max {diff.max():.0f}); "
+              f"depth_of_field alone on the card s "
+              f"{[round(x, 6) for x in dof_s]}")
+
+    def raw_on_card(name):
+        im, zz = read_tiff(f"{REPO}/tests/goldens/{name}")
+        return (torch.from_numpy(im).to(dev),
+                torch.from_numpy(zz.reshape(im.shape[:2])).to(dev))
+
+    def golden(name):
+        im, _ = read_tiff(f"{REPO}/tests/goldens/{name}")
+        return (im * 255.0).astype(np.int32)
+
+    def q8(x):
+        return quantize_rgb8(x.cpu().numpy()).astype(np.int32)
+
+    im1, z1 = raw_on_card("scene1_96_raw.tif")
+    im3, z3 = raw_on_card("scene3_96_raw.tif")
+    s3, b3 = ops.dof_camera_params(z3, 0.1, 0.2, 3.0)
+    res = {}
+    for name, out in (
+            ("pp_brighten.tif", ops.brighten(im1, 2.5)),
+            ("pp_mist.tif", ops.mist(im1, z1, 2.0, 10.0, "lin",
+                                     [0.5, 0.6, 0.7])),
+            ("pp_dof.tif", ops.depth_of_field(ops.brighten(im1, 2.0), z1,
+                                              0.02, -1.0)),
+            ("pp_dof_camera.tif", ops.depth_of_field(im3, z3, s3, b3))):
+        diff = np.abs(q8(out) - golden(name))
+        res[name] = (float((diff.max(-1) <= 1).mean()), int(diff.max()))
+    check(res["pp_brighten.tif"][1] == 0, f"pp_brighten {res}")
+    check(res["pp_dof_camera.tif"][1] == 0, f"pp_dof_camera {res}")
+    check(res["pp_mist.tif"][0] > 0.999 and res["pp_mist.tif"][1] <= 2,
+          f"pp_mist {res}")
+    check(res["pp_dof.tif"][0] > 0.995, f"pp_dof {res}")
+    phase(28, f"reference goldens on the card (share of pixels within 1, "
+              f"max diff): {res}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -823,7 +1267,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
-    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    smi_line = smi[0] if smi else "nvidia-smi: no output"
+    print(smi_line, flush=True)
     phase(1, f"torch {torch.__version__} cuda {torch.version.cuda} "
              f"available={torch.cuda.is_available()}")
     check(torch.cuda.is_available(), "torch.cuda.is_available()")
@@ -1273,12 +1718,13 @@ def main() -> int:
                  "visit_order": pallas_visit.visit_order}
     img, z, gst, gsecs, glaunches, gpeak = time_frames(
         grender, gsc.params, rng.PhiloxSampler(args.seed, dev), dev,
-        glass_fns)
+        glass_fns, n=GLASS_FRAMES)
     check(all(n > 0 for n in glaunches.values()), f"launches {glaunches}")
     check_frame(img, z, GLASS_RES, "glass main path")
     check(gst["children_pushed"] > 0 and gst["main_rays"] > GLASS_RES ** 2,
           f"glass stack rays {gst}")
-    glass_rec[64]["launches_per_frame"] = glaunches["visit_order"] / 3
+    glass_rec[64]["launches_per_frame"] = (glaunches["visit_order"]
+                                           / GLASS_FRAMES)
     grays = gst["main_rays"] + gst["shadow_rays"] + gst["gi_rays"]
     gframe_s = mean(gsecs)
     phase(16, f"{GLASS_RES}x{GLASS_RES} glass stand-in, RenderConfig(), 100 "
@@ -1330,10 +1776,27 @@ def main() -> int:
               f"{worst_g}")
 
     gi = gi_phases(sc, gsc, dev, args.seed, gen, n_sm)
+
+    # -- phases 24-28: kernel 3 above 256, the CLIs, progressive renders,
+    # the spill report and auto-tune, postprocessing ---------------------
+    big = big_list_phase((o1, d1, lo, hi), (gcalls[0][0], gcalls[0][1],
+                                            g_lo, g_hi),
+                         glass_rec, gsc, dev, gen, n_sm, args.seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cimg, cz, raw = engine_phase(sc, dev, tmp)
+        progressive_phase(sc, dev, tmp)
+        accel_phase(msc, gsc, (mframe_s, {"shadow": mst["shadow_spill_max"],
+                                          "visit": mst["visit_spill_max"]}),
+                    (gframe_s, {"shadow": gst["shadow_spill_max"],
+                                "visit": gst["visit_spill_max"]}),
+                    dev, tmp, n_sm)
+        postprocess_phase(cimg, cz, raw, dev, tmp)
+    del cimg, cz
     # each main path's launches, its counts set to 0 just before it ran
     by_path = {"dense_1024_3_frames": launches,
                "mesh_512_3_frames": mlaunches,
-               "glass_64_3_frames": glaunches, **gi["launches"]}
+               f"glass_64_{GLASS_FRAMES}_frames": glaunches,
+               **gi["launches"]}
 
     def path_launches(name):
         return {path: n[name] for path, n in by_path.items() if name in n}
@@ -1354,6 +1817,7 @@ def main() -> int:
                 "launches_by_path": path_launches(name),
                 "shapes": times[name], "gi_shapes": gi["kernel_gi"][name]}
 
+    print(smi_line, flush=True)   # again, for readers of the output's tail
     print(json.dumps({"kernels": [
         row("philox_uniform", "c_raytracer_tpu_torch/csrc/philox.cu",
             "c_raytracer_tpu/core/rng.py:103", 0.0,
@@ -1377,9 +1841,22 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
         "launches_per_frame": r["launches_per_frame"], "split": r["split"],
-        "path": ("glass stand-in 64x64, RenderConfig(), 3 frames" if v == 64
+        "path": (f"glass stand-in 64x64, RenderConfig(), {GLASS_FRAMES} "
+                 f"frames" if v == 64
                  else f"glass 64x64 at bvh_visits={v}, one frame")}
-        for v, r in glass_rec.items()]}), flush=True)
+        for v, r in glass_rec.items()] + [{
+        "name": "visit_order[V=512]", "route": "cuda",
+        "source": "c_raytracer_tpu_torch/csrc/visit_order.cu",
+        "replaces": "c_raytracer_tpu/accel/pallas_visit.py:98",
+        "launches": big["launches_per_frame"],
+        "max_abs_err": big["max_abs_err"], "ms": big["device_ms"],
+        "device_ms": big["device_ms"], "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+        "library_ms": None, "launches_per_frame": big["launches_per_frame"],
+        "split": big["split"], "passes": 2,
+        "mesh_device_ms": big["mesh_device_ms"], "by_v": big["by_v"],
+        "path": "glass 64x64 at bvh_visits=512 (20 lights), one frame, two "
+                "launches a call"}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

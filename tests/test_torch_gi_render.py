@@ -23,7 +23,8 @@ within 1e-5 · its max at every pixel.  Cases:
   this frame needs none of it.
 
 The spp-chunk identity (the JAX package's ``render_spp_chunked`` contract,
-tests/test_progressive.py:83-101): a frame at 4 samples a pixel equals the
+tests/test_progressive.py:83-101), through the port's
+``render_spp_chunked``: a frame at 4 samples a pixel equals the
 mean of two frames at 2 samples with offsets 0 and 2 and chunk weight 2,
 within rtol 1e-4 and atol 1e-6, on the dense stand-in (chain) and on the
 transparent lit soup of tests/test_parallel.py (cluster stack, union
@@ -39,7 +40,8 @@ import torch
 from c_raytracer_tpu.accel import reorder_scene as jax_reorder
 from c_raytracer_tpu.scene import load_scene as jax_load_scene
 from c_raytracer_tpu_torch.core.rng import PhiloxSampler
-from c_raytracer_tpu_torch.render import RenderConfig, make_renderer
+from c_raytracer_tpu_torch.render import (RenderConfig, make_renderer,
+                                          render_spp_chunked)
 from c_raytracer_tpu_torch.scene import load_scene
 from test_parallel import _lit_soup
 from test_torch_render import _stand_in
@@ -86,21 +88,6 @@ def test_dense_stack_matches_jax():
     assert st["children_pushed"] > 0 and st["main_rays"] > 256
 
 
-def spp_chunked(static, params, cfg, res, seed, chunks):
-    """The port's frame at ``cfg.samples_per_pixel`` in ``chunks`` passes
-    of disjoint sample ranges, composed by the mean."""
-    s = cfg.samples_per_pixel // chunks
-    acc = None
-    for c in range(chunks):
-        ccfg = dataclasses.replace(cfg, samples_per_pixel=s,
-                                   gi_sample_offset=c * s,
-                                   gi_chunk_weight=chunks)
-        img, _ = make_renderer(static, ccfg, res, res, device="cpu")(
-            params, PhiloxSampler(seed, "cpu"))
-        acc = img.double() if acc is None else acc + img.double()
-    return (acc / chunks).float()
-
-
 @pytest.mark.parametrize("scene", ["stand_in", "lit_soup"])
 def test_spp_chunks_compose(scene):
     if scene == "stand_in":
@@ -114,11 +101,17 @@ def test_spp_chunks_compose(scene):
                            samples_per_pixel=4)
     single, _ = make_renderer(static, cfg, 16, 16, device="cpu")(
         params, PhiloxSampler(5, "cpu"))
-    chunked = spp_chunked(static, params, cfg, 16, 5, 2)
+    chunked, _ = render_spp_chunked(_Scene(static, params), cfg, 16, 16,
+                                    PhiloxSampler(5, "cpu"), device="cpu",
+                                    spp_chunks=2, host_tiled=False)
     assert single.max() > 0
-    torch.testing.assert_close(chunked, single, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(torch.from_numpy(chunked), single, rtol=1e-4,
+                               atol=1e-6)
     # the chunks differ from each other: GI is live in the frame
-    a = spp_chunked(static, params, dataclasses.replace(
-        cfg, samples_per_pixel=2), 16, 5, 1)
-    assert float((a - single).abs().max()) > 1e-4 * float(single.max())
+    a, _ = render_spp_chunked(
+        _Scene(static, params), dataclasses.replace(cfg, samples_per_pixel=2),
+        16, 16, PhiloxSampler(5, "cpu"), device="cpu", spp_chunks=1,
+        host_tiled=False)
+    assert float((torch.from_numpy(a) - single).abs().max()) > (
+        1e-4 * float(single.max()))
 

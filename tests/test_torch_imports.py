@@ -38,7 +38,10 @@ def test_package_has_the_slice_modules():
                 "render/camera.py", "geometry/primitives.py",
                 "textures/textures.py", "render/shading.py",
                 "render/fused_shadow.py", "accel/intersect.py",
-                "render/integrator.py", "render/api.py"):
+                "render/integrator.py", "render/api.py", "image/tiff.py",
+                "core/logging.py", "render/progressive.py",
+                "accel/validate.py", "cli/engine.py", "cli/postprocess.py",
+                "postprocess/ops.py"):
         assert mod in rel, mod
 
 

@@ -59,12 +59,15 @@ def merge(lists, cap):
     return out[:n]
 
 
-def kernel_model(o, d, lo, hi, V, count_max_dist=None, n_sm=PV.N_SM_H100):
+def kernel_model(o, d, lo, hi, V, count_max_dist=None, n_sm=PV.N_SM_H100,
+                 after=None, spill_v=None):
     """(cids, entry, spill) as kernel 3 builds them under the wrapper's
     split for a card of ``n_sm`` SMs: per slice the first VM overlaps of
     its stable sort (the register or shared-memory list) and its count;
     merge 1 over each block's warps to VM, merge 2 over the cluster's
-    blocks to V."""
+    blocks to V.  A later pass of a call above 256 slots admits only boxes
+    after each ray's ``after[r]`` = (key, id) and counts its spill against
+    the call's ``spill_v`` slots."""
     R, K = o.shape[0], lo.shape[0]
     split = PV.visit_split(R, K, V, n_sm)
     slices = split.slices(K)
@@ -78,7 +81,8 @@ def kernel_model(o, d, lo, hi, V, count_max_dist=None, n_sm=PV.N_SM_H100):
         lists, count = [], 0
         for a, b in slices:
             ids = [i for i in range(a, b) if overlap[r, i]
-                   and entry[r, i] < FLT_MAX]
+                   and entry[r, i] < FLT_MAX
+                   and (after is None or (entry[r, i], i) > after[r])]
             ids.sort(key=lambda i: entry[r, i])             # stable
             lists.append([(float(entry[r, i]), i) for i in ids[:split.vm]])
             count += int(counted[r, a:b].sum())
@@ -87,7 +91,7 @@ def kernel_model(o, d, lo, hi, V, count_max_dist=None, n_sm=PV.N_SM_H100):
                   for q in range(split.cluster)]
         for j, (k, i) in enumerate(merge(blocks, V)):
             cids[r, j], ent[r, j] = i, k
-        spill[r] = max(count - V, 0)
+        spill[r] = max(count - (V if spill_v is None else spill_v), 0)
     return cids, ent, spill
 
 
@@ -243,9 +247,12 @@ def test_split_covers_boxes_and_fits_the_card(R, K, V):
 
 
 def test_split_refuses_what_the_kernel_does_not_take():
-    """V outside the compiled list sizes, 1..256: the card refuses it and
-    names the limit."""
-    with pytest.raises(ValueError, match="V=257 outside 1..256"):
-        PV.visit_split(2048, 8556, 257)
+    """V outside 1..K: the card refuses it and names the limit; any V up
+    to K is taken, above 256 in passes of 256."""
+    with pytest.raises(ValueError, match="V=8557 outside 1..K=8556"):
+        PV.visit_split(2048, 8556, 8557)
     with pytest.raises(ValueError, match="V=0"):
         PV.visit_split(2048, 8556, 0)
+    split = PV.visit_split(2048, 8556, 8556)
+    assert split.vm == 256 and split.passes == 34 == len(
+        PV.visit_passes(8556))
