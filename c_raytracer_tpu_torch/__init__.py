@@ -30,12 +30,15 @@ field, mist), both on the card by default; the TIFF codec (``image/``),
 (``accel/traverse.py`` ``spill_counts``, ``shadow_spill_counts``;
 ``accel/validate.py``) and the postprocessing ops (``postprocess/``).
 
-Still raising ``NotImplementedError``, each naming the ROADMAP item that
-brings it: primitive-range shards (``accel/intersect.py``
-``make_intersector``: multi-GPU), ``bvh_super_group`` and
-``closest_compact="on"`` (the same function: the super and sharded
-sweeps), and remat names other than ``("occlusion",)``
-(``core/remat.py`` ``check_names``).
+The JAX package's opt-ins of the cluster sweeps and the backward run too:
+the two-level super-cluster visit order (``bvh_super_group``,
+``bvh_super_sel``), closest-hit ray compaction (``closest_compact="on"``)
+and any ``remat_names`` (``shadow_samples`` and ``shade_terms`` beside
+``occlusion``, ``core/remat.py``).
+
+Still raising ``NotImplementedError``, naming the ROADMAP item that brings
+it: primitive-range shards (``accel/intersect.py`` ``make_intersector``:
+multi-GPU).
 """
 
 __version__ = "0.1.0"

@@ -12,10 +12,14 @@ Shadow queries return a count of blockers per transparent material beside
 the opaque ``blocked`` mask (geometry/primitives.py ``tint_slots``);
 ``tint`` forms the light's kt tint from it, differentiably.
 
-Not ported yet, and refused with ``NotImplementedError`` when a cluster
-route would take them: ``bvh_super_group`` (ROADMAP: the super and sharded
-sweeps), ``closest_compact="on"`` (ROADMAP: the super and sharded sweeps)
-and primitive-range shards (ROADMAP: multi-GPU).
+The opt-ins of the JAX package's cluster sweeps are taken by the same
+rules: ``bvh_super_group`` (the two-level visit order of the closest-hit
+and per-ray sweeps, GI child traces and the stack integrator's traces
+included) and ``closest_compact="on"`` (closest-hit ray compaction in
+blocks of 8192 rays down to 128, two or more of them).
+
+Not ported yet, and refused with ``NotImplementedError``: primitive-range
+shards (ROADMAP: multi-GPU).
 """
 
 from __future__ import annotations
@@ -114,7 +118,10 @@ class Intersector:
         def sweep(o2, d2, t, gid, n2):
             t, gid, n2, spill = traverse.closest_hit_clusters(
                 self.clusters, o2, d2, (t, gid, n2), visits=self._visits,
-                dead_skip=self._dead_skip, with_spill=True)
+                dead_skip=self._dead_skip, with_spill=True,
+                super_group=self._super_group,
+                super_sel=self.cfg.bvh_super_sel,
+                compact_block=self._closest_compact_block(o2.shape[0]))
             return t, gid, n2, spill
 
         t, gid, n2, spill = self._chunked(
@@ -176,7 +183,8 @@ class Intersector:
             acc, spill = traverse.any_hit_tint_clusters(
                 cs, o2, d2, md, ex, acc if cs.has_transp else acc[0],
                 visits=self._shadow_visits, dead_skip=self._dead_skip,
-                with_spill=True)
+                with_spill=True, super_group=self._super_group,
+                super_sel=self.cfg.bvh_super_sel)
             return (acc if cs.has_transp else (acc,)) + (spill,)
 
         *acc, spill = self._chunked(sweep, args)
@@ -185,6 +193,28 @@ class Intersector:
             counts = acc[1].reshape(lead + acc[1].shape[-1:])
         out = (blocked, counts)
         return out + (spill.reshape(lead),) if with_spill else out
+
+    @property
+    def _super_group(self) -> int:
+        """G of the two-level visit order, 0 for the dense one
+        (``bvh_super_group``; its auto is 0)."""
+        return self.cfg.resolved_super_group(self._any_transparent,
+                                             self.clusters.lo.shape[0])
+
+    def _closest_compact_block(self, n_rays: int) -> int:
+        """Rays a block of closest-hit compaction (0 = off): with
+        ``closest_compact="on"`` the largest power of two from 8192 down to
+        128 that divides the batch, when that makes two or more blocks
+        (smaller blocks starve each visit step).  The JAX package's loop
+        can stop at 64, below that floor; here no block is under 128."""
+        if self.cfg.closest_compact != "on":
+            return 0
+        pb = 8192
+        while pb >= 128 and n_rays % pb:
+            pb //= 2
+        if pb < 128 or n_rays % pb or n_rays // pb < 2:
+            return 0
+        return pb
 
     def _union_compact_block(self, n_pixels: int) -> int:
         """Pixels a block of the union sweep's compaction (0 = off):
@@ -410,14 +440,6 @@ def make_intersector(ds: G.DeviceScene, static, cfg,
         return Intersector(ds=ds, static=static, cfg=cfg)
     any_transp = any(static.is_transparent)
     clusters = traverse.pack_clusters(ds, static, cfg.bvh_cluster)
-    if cfg.resolved_super_group(any_transp, clusters.lo.shape[0]):
-        raise NotImplementedError(
-            "bvh_super_group is not ported yet (ROADMAP: the super and "
-            "sharded sweeps)")
-    if cfg.closest_compact == "on":
-        raise NotImplementedError(
-            'closest_compact="on" is not ported yet (ROADMAP: the super and '
-            "sharded sweeps)")
     c_shadow = cfg.resolved_shadow_cluster(any_transp)
     shadow_clusters = None
     if (cfg.resolved_shadow_mode(any_transp) in ("shared", "union")

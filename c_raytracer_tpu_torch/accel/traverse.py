@@ -50,8 +50,19 @@ The diagnostics ``spill_counts`` and ``shadow_spill_counts`` (behind
 accel/validate.py) count exactly what the sweeps truncate, in pixel
 chunks that keep every (pixels, boxes) temporary near 1 GiB.
 
-Not ported yet, and refused where they would be taken (accel/intersect.py):
-``_visit_order_super`` and ``pack_clusters_sharded``.
+Two opt-ins of the closest-hit and per-ray sweeps (``RenderConfig``
+``bvh_super_group`` and ``closest_compact``): the two-level visit order
+``_visit_order_super``, kernel 3 on super-cluster boxes and then the
+nearest of their members, and ray compaction, the closest-hit sweep in
+blocks of rays sorted by list length (``_closest_scan_compact``).  Two
+faults of the JAX package's super order are not copied: a ray that enters
+fewer than S supers (S ≤ 32) gets super 0's members again in every slot
+after its last entered super, and the padding of a short last super
+overlaps every ray at entry 0; here each entered super's real members
+enter the second level once.
+
+Not ported yet, and refused where it would be taken (accel/intersect.py):
+``pack_clusters_sharded``.
 """
 
 from __future__ import annotations
@@ -210,6 +221,77 @@ def _visit_order(cs: ClusterSet, o, d, visits: int, count_max_dist=None):
         o.detach().contiguous(), d.detach().contiguous(), cs.lo.detach(),
         cs.hi.detach(), V, None if cmd is None else cmd.contiguous())
     return cids.long(), entry < FLT_MAX, entry, spill
+
+
+def _slab(lo, hi, o, inv):
+    """The slab test of rays o (R, 3), ``inv`` their inverse directions,
+    against one box per (ray, candidate): lo, hi lists of three (R, M)
+    per-axis tensors.  Returns (entry, overlap), each (R, M)."""
+    tmin = tmax = None
+    for c in range(3):
+        t1 = (lo[c] - o[:, c, None]) * inv[:, c, None]
+        t2 = (hi[c] - o[:, c, None]) * inv[:, c, None]
+        a, b = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        tmin = a if tmin is None else torch.maximum(tmin, a)
+        tmax = b if tmax is None else torch.minimum(tmax, b)
+    entry = torch.clamp(tmin, min=0.0)
+    return entry, tmax >= entry
+
+
+@torch.no_grad()
+def _visit_order_super(cs: ClusterSet, o, d, visits: int, G: int, S: int,
+                       count_max_dist=None):
+    """Two-level visit order: (cids (R, V), ok (R, V), entry (R, V),
+    spill (R,)) as ``_visit_order`` returns them.
+
+    Level 1 runs kernel 3 on the Ks = ceil(K/G) super boxes (the bounds of
+    each run of G consecutive Morton clusters; a short last run is padded
+    with boxes that bound nothing) and keeps each ray's nearest S' =
+    min(S, Ks) entered supers, by (entry, id), with their spill counted
+    under ``count_max_dist``.  Level 2 slab-tests the S'·G members of
+    those supers and keeps the nearest V = min(visits, K, S·G) by entry,
+    ties to the lowest candidate position: the nearer super's member
+    first.  A slot that kernel 3 left empty, and a padding member, gives
+    no candidate.  ``spill`` is the members' count beyond V plus G times
+    the supers' beyond S' (a bound: every truncation shows).  Selection
+    only: no gradient."""
+    K = cs.lo.shape[0]
+    V = max(1, min(visits, K, S * G))
+    Ks = -(-K // G)
+    pad = Ks * G - K
+    lo, hi = cs.lo, cs.hi
+    if pad:
+        lo = torch.cat([lo, lo.new_full((pad, 3), FLT_MAX)])
+        hi = torch.cat([hi, hi.new_full((pad, 3), -FLT_MAX)])
+    # contiguous, so 16-byte aligned, as kernel 3 takes its boxes
+    slo = lo.reshape(Ks, G, 3).amin(1).contiguous()
+    shi = hi.reshape(Ks, G, 3).amax(1).contiguous()
+    o, d = o.contiguous(), d.contiguous()
+    cmd = None if count_max_dist is None else count_max_dist.contiguous()
+    S1 = min(S, Ks)
+    scids, sentry, s_spill = pallas_visit.visit_order(o, d, slo, shi, S1,
+                                                      cmd)
+    slot_ok = sentry < FLT_MAX                             # (R, S1)
+
+    R = o.shape[0]
+    members = torch.arange(G, device=o.device)
+    cand = (scids.long().clamp(0, Ks - 1)[:, :, None] * G
+            + members).reshape(R, S1 * G)                  # (R, S1·G)
+    live = (slot_ok[:, :, None].expand(R, S1, G).reshape(R, S1 * G)
+            & (cand < K))
+    dd = torch.where(torch.abs(d) < 1e-30, 1e-30, d)
+    inv = 1.0 / dd
+    entry, ov = _slab([lo[:, c][cand] for c in range(3)],
+                      [hi[:, c][cand] for c in range(3)], o, inv)
+    ov = ov & live
+    counted = ov if cmd is None else ov & (entry < cmd[:, None])
+    spill = (torch.clamp(counted.sum(-1) - V, min=0)
+             + G * s_spill.long()).to(torch.int32)
+    # S1·G >= V: S1 = S, or S1 = Ks and Ks·G >= K >= V
+    vals, cids = _k_smallest_payload(torch.where(ov, entry, FLT_MAX), cand,
+                                     V)
+    ok = vals < FLT_MAX
+    return torch.where(ok, cids, 0), ok, vals, spill
 
 
 def _visit_limit(ok, dead_skip: bool) -> int:
@@ -380,8 +462,29 @@ def _closest_scan(cs, cids, ok, entry, o, d, bt0, bg0, dead_skip: bool):
     return bt, bg
 
 
+def _closest_scan_compact(cs, cids, ok, entry, o, d, bt0, bg0, block: int):
+    """``_closest_scan`` with ray compaction: the rays sorted by live list
+    length (a stable sort), folded in blocks of ``block`` sorted rays that
+    each stop at their own longest list, and put back in order.  Each ray
+    folds its own list in the same order, so (best_t, best_gid) are bit
+    for bit the uncompacted sweep's; the permutation carries no gradient,
+    the gathers of o, d and the running best do."""
+    order = torch.argsort(ok.sum(1), stable=True)
+    bt, bg = [], []
+    for b0 in range(0, o.shape[0], block):
+        r = order[b0:b0 + block]
+        t_b, g_b = _closest_scan(cs, cids[r], ok[r], entry[r], o[r], d[r],
+                                 bt0[r], bg0[r], dead_skip=True)
+        bt.append(t_b)
+        bg.append(g_b)
+    inv = torch.argsort(order)
+    return torch.cat(bt)[inv], torch.cat(bg)[inv]
+
+
 def closest_hit_clusters(cs: ClusterSet, o, d, best, *, visits: int,
-                         dead_skip: bool = False, with_spill: bool = False):
+                         dead_skip: bool = False, with_spill: bool = False,
+                         super_group: int = 0, super_sel: int = 16,
+                         compact_block: int = 0):
     """Fold the nearest ``visits`` clusters' triangles into ``best``.
 
     o, d: (R, 3); best: (t (R,), gid (R,), normal (R, 3)) from the
@@ -389,11 +492,24 @@ def closest_hit_clusters(cs: ClusterSet, o, d, best, *, visits: int,
     also the per-ray (R,) count of overlapped clusters beyond the budget
     (spill == 0 proves the sweep exhaustive; best-t pruning usually masks
     spill > 0).  The loop carries (t, gid) only; the winner's normal is
-    gathered once after it."""
+    gathered once after it.  ``super_group`` G > 0 takes the visit order
+    from ``_visit_order_super`` with ``super_sel`` supers; a
+    ``compact_block`` that splits R into two or more blocks folds through
+    ``_closest_scan_compact``."""
     C = cs.blk.shape[2]
-    cids, ok, entry, spill = _visit_order(cs, o, d, visits)
+    if super_group:
+        cids, ok, entry, spill = _visit_order_super(cs, o, d, visits,
+                                                    super_group, super_sel)
+    else:
+        cids, ok, entry, spill = _visit_order(cs, o, d, visits)
     bt0, bg0, bn0 = best
-    bt, bg = _closest_scan(cs, cids, ok, entry, o, d, bt0, bg0, dead_skip)
+    R = o.shape[0]
+    if compact_block and R % compact_block == 0 and R // compact_block >= 2:
+        bt, bg = _closest_scan_compact(cs, cids, ok, entry, o, d, bt0, bg0,
+                                       compact_block)
+    else:
+        bt, bg = _closest_scan(cs, cids, ok, entry, o, d, bt0, bg0,
+                               dead_skip)
     won = bg != bg0                        # a triangle beat the pre-pass
     ti = torch.clamp(bg - cs.gid0, 0, cs.blk.shape[0] * C - 1)
     nrm = cs.blk[ti // C, _F_N:_F_N + 3, ti % C]
@@ -405,7 +521,8 @@ def closest_hit_clusters(cs: ClusterSet, o, d, best, *, visits: int,
 
 def any_hit_tint_clusters(cs: ClusterSet, o, d, max_dist, exclude_gid, acc,
                           *, visits: int, dead_skip: bool = False,
-                          with_spill: bool = False):
+                          with_spill: bool = False, super_group: int = 0,
+                          super_sel: int = 16):
     """Fold cluster triangles into the shadow accumulators — the per_ray
     shadow mode.  ``acc`` is blocked (R,) for a pack without transparent
     triangles, else (blocked (R,), counts (R, n_slots) int16): an in-range
@@ -413,10 +530,16 @@ def any_hit_tint_clusters(cs: ClusterSet, o, d, max_dist, exclude_gid, acc,
     (the JAX package multiplies a tint by kt or 0, accel.c:360-387).
     Visits are nearest first, so opaque blocking is found even past the
     budget.  ``with_spill``: also the per-ray count of in-range
-    (entry < max_dist) overlapped clusters beyond the budget."""
+    (entry < max_dist) overlapped clusters beyond the budget.
+    ``super_group`` as in closest_hit_clusters."""
     C = cs.blk.shape[2]
-    cids, ok, entry, spill = _visit_order(
-        cs, o, d, visits, count_max_dist=max_dist if with_spill else None)
+    cmd = max_dist if with_spill else None
+    if super_group:
+        cids, ok, entry, spill = _visit_order_super(
+            cs, o, d, visits, super_group, super_sel, count_max_dist=cmd)
+    else:
+        cids, ok, entry, spill = _visit_order(cs, o, d, visits,
+                                              count_max_dist=cmd)
     lanes = torch.arange(C, device=o.device)
     for v in range(_visit_limit(ok, dead_skip)):
         cid = cids[:, v]

@@ -44,7 +44,6 @@ class _Frame:
     primary rays and stitches them."""
 
     def __init__(self, static, cfg, resx, resy, device):
-        remat.check_names(cfg.remat_names)
         self.static, self.cfg, self.resx, self.resy = static, cfg, resx, resy
         self.device = torch.device(device)
         self.n_pixels = resx * resy
@@ -60,10 +59,12 @@ class _Frame:
     def setup(self, params, grad: bool):
         """(intersector, padded primary origins, directions) of the frame;
         the intersector keeps the occlusion masks for the backward when
-        ``grad`` and ``cfg.remat``."""
+        ``grad``, ``cfg.remat`` and ``"occlusion"`` among
+        ``cfg.remat_names``."""
         ix = make_intersector(G.device_scene(params, self.static),
                               self.static, self.cfg)
-        if grad and self.cfg.remat:
+        if (grad and self.cfg.remat
+                and remat.OCCLUSION in self.cfg.remat_names):
             ix = dataclasses.replace(ix, saved_occlusion={})
         o, d = primary_rays(params.camera, self.resx, self.resy)
         if self.pad:
@@ -119,7 +120,8 @@ def make_renderer(static: T.SceneStatic, cfg: RenderConfig, resx: int,
     that requires grad (``params_to_torch`` keeps the caller's leaves):
     the image and z then carry ``grad_fn`` and ``backward()`` fills the
     leaves' ``.grad``.  With ``cfg.remat`` the backward recomputes each
-    round, light chunk and GI sample, keeping only the occlusion masks
+    round, light chunk and GI sample, keeping the values that
+    ``cfg.remat_names`` names, by default the occlusion masks only
     (core/remat.py); without a leaf that requires grad the frame runs
     under ``torch.no_grad``."""
     frame = _Frame(static, cfg, resx, resy, device)

@@ -3,9 +3,9 @@ render.c:61-116) as a static dataclass.
 
 The same fields and defaults as ``c_raytracer_tpu.render.config``: -b 10,
 -a 0.01, -s phong, -g ambient, -n 1, -l sqr, -o 1.  The execution-shape
-knobs of the JAX package are accepted so one config drives both packages;
-the ones that select a path this port does not have yet are rejected where
-that path would be taken (see render/integrator.py).
+knobs of the JAX package are accepted so one config drives both packages,
+and each takes the path it takes there, apart from the two opt-ins of its
+Pallas kernels, which the CUDA kernels serve whatever they say.
 """
 
 from __future__ import annotations

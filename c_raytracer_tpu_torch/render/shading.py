@@ -27,6 +27,11 @@ Gradients: each light chunk is a rematerialised region (core/remat.py), its
 draw inside it, so the backward draws again instead of keeping (lc, P)
 samples.  The occlusion sweeps run without autograd and their masks are the
 frame's saved residual: the recompute reads them and never sweeps again.
+The samples' directions and distances and the cosine and ``powf`` terms of
+the chunk loop are the named residuals ``shadow_samples`` and
+``shade_terms``, kept too when ``cfg.remat_names`` asks for them; the fused
+route names nothing, as in the JAX package, whose draws live inside its
+kernel.
 """
 
 from __future__ import annotations
@@ -147,9 +152,9 @@ def _sphere_light_point(key, center: V3, radius, hit_pt: V3, lc):
     return _sphere_light_point_from_u(u, center, radius, hit_pt)
 
 
-def _triangle_light_point(key, v0: V3, e1: V3, e2: V3, hit_pt: V3, lc):
-    """Uniform barycentric points (object.c:403-419).  Returns V3 (lc, P)."""
-    u = key.uniform((2, lc) + tuple(hit_pt.x.shape))
+def _triangle_light_point_from_u(u, v0: V3, e1: V3, e2: V3):
+    """Uniform barycentric points (object.c:403-419) from pre-drawn
+    uniforms u (2, lc, P).  Returns V3 (lc, P)."""
     p, q = u[0], u[1]
     over = p + q > 1.0
     p = torch.where(over, 1.0 - p, p)
@@ -159,18 +164,23 @@ def _triangle_light_point(key, v0: V3, e1: V3, e2: V3, hit_pt: V3, lc):
 
 def _light_dirs(ds, static, ckey, egid: int, hit_pt: V3, lc):
     """One chunk's sample directions toward emitter ``egid``, drawn under
-    ``ckey``: (ldir V3 (lc, P), ldist (lc, P))."""
+    ``ckey``: (ldir V3 (lc, P), ldist (lc, P)), computed from the draw on
+    as the residual ``shadow_samples`` (core/remat.py)."""
+    u = ckey.uniform((2, lc) + tuple(hit_pt.x.shape))
     if egid < static.n_spheres:
-        lp = _sphere_light_point(ckey, v3m.splat(ds.sph_center[egid]),
-                                 ds.sph_radius[egid], hit_pt, lc)
+        center, radius = v3m.splat(ds.sph_center[egid]), ds.sph_radius[egid]
     else:
         ti = egid - static.n_spheres
-        lp = _triangle_light_point(
-            ckey, v3m.splat(ds.tri_v0[ti]), v3m.splat(ds.tri_e1[ti]),
-            v3m.splat(ds.tri_e2[ti]), hit_pt, lc)
-    lvec = lp - hit_pt.map(lambda a: a[None])
-    ldist = v3m.safe_mag(lvec)
-    ldir = lvec * (1.0 / torch.where(ldist == 0.0, 1.0, ldist))
+        v0, e1, e2 = (v3m.splat(x[ti])
+                      for x in (ds.tri_v0, ds.tri_e1, ds.tri_e2))
+    with remat.named(remat.SHADOW_SAMPLES):
+        if egid < static.n_spheres:
+            lp = _sphere_light_point_from_u(u, center, radius, hit_pt)
+        else:
+            lp = _triangle_light_point_from_u(u, v0, e1, e2)
+        lvec = lp - hit_pt.map(lambda a: a[None])
+        ldist = v3m.safe_mag(lvec)
+        ldir = lvec * (1.0 / torch.where(ldist == 0.0, 1.0, ldist))
     return ldir, ldist
 
 
@@ -267,8 +277,9 @@ def _shade_chunk(ix, static, cfg, ckey, egid, real, intensity: V3,
         hm = v3m.safe_mag(hv)
         reflected = hv * (1.0 / torch.where(hm == 0.0, 1.0, hm))
         spec_mul = -v3m.dot(nrm_b, reflected)
-    cos_d = cmath.fmaxf_zero(a)
-    spec_p = cmath.fmax0_powf(spec_mul, shin[None])
+    with remat.named(remat.SHADE_TERMS):
+        cos_d = cmath.fmaxf_zero(a)
+        spec_p = cmath.fmax0_powf(spec_mul, shin[None])
     diffuse = tex_col.map(lambda x: x[None]) * incoming * cos_d
     spec = ksv.map(lambda x: x[None]) * incoming * spec_p
     contrib = v3m.where(real & ~blocked, diffuse + spec, 0.0)

@@ -18,7 +18,7 @@ bound, kernel 2's backward included.  Phases 11-13 take gradients: card
 against CPU grads of every SceneParams leaf on small dense and mesh frames
 (11), then a forward+backward step of each main path, the dense stand-in
 at 1024x1024 (12, with the peak memory of the step without
-rematerialisation) and the mesh stand-in at 512x512 (13).  Phases 14-18
+rematerialisation) and the mesh stand-in at 256x256 (13).  Phases 14-18
 drive the stack integrator of transparent scenes: kernel 3 at the glass
 stand-in's shapes with lists of 64, 128 and 256 (14); small glass and
 scenes/example.json frames, card against CPU (15); the glass stand-in
@@ -47,7 +47,18 @@ dense path GI against the single call (26); --accel-report on the mesh
 stand-in at 512x512 and --accel-tune on the glass stand-in at 64x64
 through the engine's main, and the card's spill reports against the
 CPU's at 64x64 (27); the postprocess CLI on phase 25's raw file, card
-against CPU, and the reference's postprocess goldens on the card (28).
+against CPU, and the reference's postprocess goldens on the card (28).  Phases
+29-31 drive the JAX package's opt-ins: the two-level super-cluster visit
+order (``bvh_super_group``), kernel 3 at the super level's shape bit-equal
+to plain, small frames card vs CPU and against the dense order, and
+512x512 mesh frames at the defaults and at S = 16 and 48 in turns (29);
+closest-hit ray compaction at tiles of 16384, on vs off bit-equal, and
+frame seconds on, off and at the default tile (30); and one glass
+forward+backward step at 32x32 (3 bounces) under each ``remat_names``
+tuple, with its seconds, peak and grads against the default names' (31).
+To fit the time limit the flagship runs at 2 bounces (its 16x16 grads at
+1), the mesh path times 2 frames and its step runs at 256x256, the glass
+path times 1 frame and its 16x16 grads run at 2 bounces.
 Each phase prints one
 line or a few; any failed check raises, so the script exits non-zero and
 prints no result.  The last two lines are the kernels' JSON summary and
@@ -105,17 +116,21 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SCENE = "scenes/spheres_opaque.json"
 MESH_SCENE = "scenes/meshes_opaque.json"
 MESH_RES = 512
+MESH_STEP_RES = 256   # the mesh forward+backward step's frame (phase 13)
 MESH_TILE = 2048      # the auto tile of a cluster scene
 GLASS_SCENE = "scenes/meshes_glass.json"
 GLASS_RES = 64
-GLASS_FRAMES = 2      # timed glass frames: two keep the run within its time
+MESH_FRAMES = 2       # timed frames of the mesh and glass main paths: few
+GLASS_FRAMES = 1      # enough to keep the run within its time
 EXAMPLE_SCENE = "scenes/example.json"
 GLASS_LISTS = (64, 128, 256)   # kernel 3's list sizes on the glass path
 # path GI at bench.py:97's settings, and bench.py:251-285's flagship (its
-# lights capped at 24; the auto cluster tile of 2048, not its tile of 512)
+# lights capped at 24; the auto cluster tile of 2048, not its tile of 512;
+# cut to 2 bounces, FLAGSHIP_BOUNCES, to keep the run within its time)
 GI_CFG = RenderConfig(gi_model="path", samples_per_pixel=4)
+FLAGSHIP_BOUNCES = 2
 FLAGSHIP_CFG = RenderConfig(gi_model="path", samples_per_pixel=4,
-                            light_chunk=8)
+                            light_chunk=8, max_bounces=FLAGSHIP_BOUNCES)
 FLAGSHIP_LIGHTS = 24
 KAT = {  # Random123 philox4x32_10, counter 0, key 0
     "ctr0_key0": (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)}
@@ -634,9 +649,9 @@ def flagship_loss(color, z, target):
 
 def flagship_grads(static, params, res, device, seed):
     """{leaf name: grad on the CPU} of the flagship loss by the host-tiled
-    value-and-grad on ``device``, at 3 bounces (the CPU's time)."""
+    value-and-grad on ``device``, at 1 bounce (the CPU's time)."""
     from c_raytracer_tpu_torch.scene import named_leaves
-    cfg = dataclasses.replace(FLAGSHIP_CFG, max_bounces=3)
+    cfg = dataclasses.replace(FLAGSHIP_CFG, max_bounces=1)
     vg = make_host_tiled_value_and_grad(static, cfg, res, res,
                                         flagship_loss, device=device)
     _, g = vg(params, rng.PhiloxSampler(seed, device))
@@ -818,7 +833,8 @@ def gi_phases(sc, gsc, dev, seed, gen, n_sm) -> dict:
     fst = {k: float(v) for k, v in fst.items()}
     frays = fst["main_rays"] + fst["shadow_rays"] + fst["gi_rays"]
     out["launches"]["flagship_frame"] = flaunch
-    phase(23, f"flagship: glass {GLASS_RES}x{GLASS_RES}, 24 lights, path GI "
+    phase(23, f"flagship: glass {GLASS_RES}x{GLASS_RES}, 24 lights, "
+              f"{FLAGSHIP_BOUNCES} bounces, path GI "
               f"spp 4, light_chunk 8, host-tiled (2 batches of the auto "
               f"tile 2048), one frame: s {fsecs:.6f}; {frays:.0f} rays, "
               f"{frays / fsecs:.6e} rays/s; peak {fpeak / 2**20:.1f} MiB; "
@@ -857,7 +873,7 @@ def gi_phases(sc, gsc, dev, seed, gen, n_sm) -> dict:
     card = flagship_grads(fstatic, gsc.params, 16, dev, seed)
     cpu_g = flagship_grads(fstatic, gsc.params, 16, cpu, seed)
     worst = grads_agree(card, cpu_g, "flagship 16x16")
-    phase(23, f"flagship card vs CPU grads at 16x16 (3 bounces), every "
+    phase(23, f"flagship card vs CPU grads at 16x16 (1 bounce), every "
               f"leaf finite and within tolerance; worst leaf {worst}")
     return out
 
@@ -1257,6 +1273,237 @@ def postprocess_phase(img, z, raw, dev, tmp):
               f"max diff): {res}")
 
 
+SUPER_G = 16               # phase 29: supers of 16 mesh clusters
+SUPER_SELS = (16, 48)      # supers kept per ray
+COMPACT_TILE = 16384       # phase 30: tiles of 16384 rays,
+COMPACT_BLOCK = 8192       # two compaction blocks of 8192 each
+REMAT_RES = 32             # phase 31: phase 18's glass step at 1/4 the px
+REMAT_BOUNCES = 3          # and cut to 3 bounces
+REMAT_NAMES = (("occlusion",), ("occlusion", "shadow_samples"),
+               ("occlusion", "shade_terms"),
+               ("occlusion", "shadow_samples", "shade_terms"))
+
+
+def timed_frame(render, params, dev, seed):
+    """One frame on the card: (seconds, image, z, stats, visit-order
+    launches), the launch count set to 0 just before it."""
+    pallas_visit.visit_order.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, z, st = render(params, rng.PhiloxSampler(seed, dev))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (secs, img, z, {k: float(v) for k, v in st.items()},
+            pallas_visit.visit_order.launches)
+
+
+def super_phase(msc, o1, d1, dev, gen, n_sm, seed) -> dict:
+    """Phase 29: the two-level visit order (bvh_super_group).  Kernel 3 at
+    the super level's shape (phase 7's first-round rays against the mesh
+    stand-in's 535 supers of 16 clusters) bit-equal to its plain version
+    at S = 16 and 48, with and without count_max_dist, and timed; a 64x64
+    super frame card vs CPU; a 128x128 frame with every super kept against
+    the dense order at bvh_visits=256; frame seconds of the 512x512 mesh
+    stand-in at the defaults and at S = 16 and 48, in turns.  Returns the
+    numbers for the kernels' JSON line."""
+    from c_raytracer_tpu_torch.accel import traverse
+    cpu = torch.device("cpu")
+    cs = make_intersector(device_scene(params_to_torch(msc.params, dev),
+                                       msc.static), msc.static,
+                          RenderConfig()).clusters
+    K, R = cs.lo.shape[0], o1.shape[0]
+    Ks = -(-K // SUPER_G)
+    boxes = record(pallas_visit, "visit_order",
+                   lambda: traverse._visit_order_super(
+                       cs, o1, d1, 16, SUPER_G, max(SUPER_SELS)),
+                   lambda o, d, lo, hi, V, count_max_dist=None: (lo, hi))
+    slo, shi = boxes[0]
+    check(len(boxes) == 1 and slo.shape[0] == Ks == 535,
+          f"super level: {len(boxes)} calls, K'={slo.shape[0]}")
+    cmd = torch.rand((R,), generator=gen, device=dev) * 4
+    live = int((torch.isfinite(o1).all(1) & torch.isfinite(d1).all(1)).sum())
+    recs, oks = {}, {}
+    for S in SUPER_SELS:
+        oks[S] = [compare_visit(o1, d1, slo, shi, S)[:2],
+                  compare_visit(o1, d1, slo, shi, S, cmd)[:2]]
+
+        def run(S=S):
+            return pallas_visit.visit_order(o1, d1, slo, shi, S)
+        rec = time_line(
+            f"visit order super level R={R} K'={Ks} V={S}",
+            [device_ms(run), device_ms(run)],
+            bound_ms(4 * (6 * R + 6 * Ks + 2 * R * S + R),
+                     VISIT_OPS_PER_BOX * live * Ks),
+            split=str(pallas_visit.visit_split(R, Ks, S, n_sm)))
+        rec["plain_ms"] = device_ms(
+            lambda S=S: pallas_visit.visit_order_reference(o1, d1, slo, shi,
+                                                           S), 10)
+        # the whole two-level order of a closest-hit call (CUDA events)
+        rec["order_ms"] = issue_ms(lambda S=S: traverse._visit_order_super(
+            cs, o1, d1, 16, SUPER_G, S))
+        recs[S] = rec
+    dense_ms = issue_ms(lambda: traverse._visit_order(cs, o1, d1, 16))
+    phase(29, f"visit-order kernel bit-equal to plain at the super level, "
+              f"R={R} K'={Ks} (ok slots, spill max; plain, count_max_dist): "
+              f"{oks}; device ms / bound ms / plain ms "
+              + "; ".join(f"S={S} {r['device_ms']:.6f} / {r['bound_ms']:.6f}"
+                          f" / {r['plain_ms']:.6f}" for S, r in recs.items())
+              + "; a closest-hit call's whole visit order ms (CUDA events, "
+              f"20 calls): dense {dense_ms:.4f}, "
+              + ", ".join(f"super S={S} {r['order_ms']:.4f}"
+                          for S, r in recs.items()))
+
+    scfg = RenderConfig(bvh_super_group=SUPER_G)
+    fr = [render_on(d, msc.static, msc.params, scfg, 64, seed)
+          for d in (dev, cpu)]
+    stats_equal(fr[0][2], fr[1][2], "64x64 mesh super")
+    pix, zok = frames_agree(*fr, "64x64 mesh super")
+    full = [render_on(dev, msc.static, msc.params,
+                      RenderConfig(bvh_visits=256, **kw), 128, seed)
+            for kw in ({}, dict(bvh_super_group=SUPER_G, bvh_super_sel=Ks))]
+    stats_equal(full[1][2], full[0][2], "128x128 super S=Ks vs dense")
+    same = (full[0][0] == full[1][0]).all(-1) & (full[0][1] == full[1][1])
+    n_diff = int((~same).sum())
+    check(same.float().mean().item() >= 0.999,
+          f"128x128 super S=Ks vs dense: {n_diff} pixels differ")
+    phase(29, f"64x64 mesh at bvh_super_group={SUPER_G}, card vs CPU: stats "
+              f"equal {fr[0][2]}; image {pix:.5f}, z {zok:.5f} of pixels "
+              f"within 1e-4·max; 128x128 at bvh_visits=256, S={Ks} (every "
+              f"super) vs the dense order: stats equal {full[0][2]}, "
+              f"{n_diff} of {128 * 128} pixels differ (ties in t between "
+              f"clusters: the super order visits the nearer super first)")
+    del fr, full
+
+    renders = {name: make_renderer(msc.static, cfg, MESH_RES, MESH_RES,
+                                   device=dev, with_stats=True)
+               for name, cfg in (
+                   ("default", RenderConfig()),
+                   ("S=16", scfg),
+                   ("S=48", RenderConfig(bvh_super_group=SUPER_G,
+                                         bvh_super_sel=48)))}
+    runs = collections.defaultdict(list)
+    for name in ("default", "S=16", "S=48"):
+        secs, img, z, st, n = timed_frame(renders[name], msc.params, dev,
+                                          seed)
+        check_frame(img, z, MESH_RES, f"mesh {name}")
+        check(n > 0, f"mesh {name}: visit-order launches {n}")
+        runs[name].append((secs, st["visit_spill_max"], n))
+    phase(29, f"{MESH_RES}x{MESH_RES} mesh stand-in frame s (visit spill "
+              f"max, kernel 3 launches), in the order default, S=16, S=48: "
+              f"{dict(runs)}")
+    return dict(recs=recs, oks=oks, launches=runs["S=16"][0][2],
+                frames={k: [r[0] for r in v] for k, v in runs.items()},
+                launches_by_path={f"mesh_{MESH_RES}_super_{k}_1_frame":
+                                  v[0][2] for k, v in runs.items()
+                                  if k != "default"})
+
+
+def compact_phase(msc, dev, seed) -> dict:
+    """Phase 30: closest-hit ray compaction.  The mesh stand-in at 512x512
+    in tiles of 16384 (two blocks of 8192 a closest-hit call), compaction
+    on against off: image, z and stats bit-equal, the compacted sweep
+    counted; frame seconds on, off and at the default tile, in turns."""
+    from c_raytracer_tpu_torch.accel import traverse
+    renders = {name: make_renderer(msc.static, cfg, MESH_RES, MESH_RES,
+                                   device=dev, with_stats=True)
+               for name, cfg in (
+                   ("off", RenderConfig(tile_size=COMPACT_TILE)),
+                   ("on", RenderConfig(tile_size=COMPACT_TILE,
+                                       closest_compact="on")),
+                   ("default tile", RenderConfig()))}
+    runs = collections.defaultdict(list)
+    frames = {}
+    for name in ("off", "on", "default tile", "on", "off"):
+        out = []
+        sweeps = record(traverse, "_closest_scan_compact",
+                        lambda: out.append(timed_frame(
+                            renders[name], msc.params, dev, seed)),
+                        lambda *a, **k: a[-1])
+        secs, img, z, st, n = out[0]
+        check((len(sweeps) > 0) == (name == "on")
+              and all(b == COMPACT_BLOCK for b in sweeps),
+              f"{name}: compacted sweeps {sweeps}")
+        runs[name].append((secs, len(sweeps), n))
+        frames.setdefault(name, (img, z, st))
+    (i0, z0, s0), (i1, z1, s1) = frames["off"], frames["on"]
+    check(torch.equal(i0, i1) and torch.equal(z0, z1) and s0 == s1,
+          "compaction on vs off: image, z and stats bit-equal")
+    phase(30, f"{MESH_RES}x{MESH_RES} mesh stand-in in tiles of "
+              f"{COMPACT_TILE}: closest_compact on vs off bit-equal (image, "
+              f"z, stats {s1}); frame s (compacted sweeps, kernel 3 "
+              f"launches) in the order off, on, default tile, on, off: "
+              f"{dict(runs)}")
+    return dict(frames={k: [r[0] for r in v] for k, v in runs.items()},
+                launches_by_path={
+                    f"mesh_{MESH_RES}_tile_{COMPACT_TILE}_compact_1_frame":
+                    runs["on"][0][2]})
+
+
+def remat_names_phase(gsc, dev, seed) -> dict:
+    """Phase 31: one forward+backward step of mean(img²) of the glass
+    stand-in at 32x32 (phase 18's configuration) under each remat_names
+    tuple: seconds, peak memory, ratio to the forward, and grads against
+    the ("occlusion",) step's, bit for bit under deterministic algorithms
+    (or within 1e-6·max|g| with the ops that have no deterministic form
+    named)."""
+    import warnings
+
+    glass_fns = {"philox_uniform": rng.philox_uniform,
+                 "visit_order": pallas_visit.visit_order}
+    res = REMAT_RES
+    fwd = make_renderer(gsc.static, RenderConfig(max_bounces=REMAT_BOUNCES),
+                        res, res, device=dev, with_stats=True)
+    fwd_s = timed_frame(fwd, gsc.params, dev, seed)[0]
+    out, ref, nondet = {}, None, set()
+    was = torch.are_deterministic_algorithms_enabled()
+    for names in REMAT_NAMES:
+        render = make_renderer(gsc.static, RenderConfig(
+            max_bounces=REMAT_BOUNCES, remat_names=names), res, res,
+            device=dev, with_stats=True)
+        torch.cuda.empty_cache()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                bsecs, _, blaunch, bpeak, named = time_fwd_bwd(
+                    render, gsc.params, dev, seed, glass_fns, warmup=False)
+        finally:
+            torch.use_deterministic_algorithms(was)
+        nondet |= {str(w.message).split(" does not have")[0]
+                   for w in caught if "deterministic" in str(w.message)}
+        grads = {n: x.grad for n, x in named}
+        out[names] = dict(s=bsecs, peak_mib=bpeak / 2**20,
+                          ratio=bsecs / fwd_s, launches=blaunch)
+        if ref is None:
+            ref = grads
+            continue
+        for n, g in ref.items():
+            check((g is None) == (grads[n] is None), f"{names} {n}: grad")
+            if g is None:
+                continue
+            if nondet:
+                scale = g.abs().max().item()
+                check((grads[n] - g).abs().max().item() <= 1e-6 * scale,
+                      f"{names} {n}: grads within 1e-6·max of the default")
+            else:
+                check(torch.equal(grads[n], g),
+                      f"{names} {n}: grads bit-equal to the default")
+        del grads, named
+    phase(31, f"glass {res}x{res} (100 lights, {REMAT_BOUNCES} bounces) "
+              f"fwd+bwd of mean(img²) by remat_names, under deterministic "
+              f"algorithms: forward s {fwd_s:.6f}; "
+              + "; ".join(f"{'+'.join(k)}: s {v['s']:.6f} ({v['ratio']:.3f}x "
+                          f"the forward), peak {v['peak_mib']:.1f} MiB"
+                          for k, v in out.items())
+              + "; grads " + ("bit-equal to the default names'" if not nondet
+                              else f"within 1e-6·max of the default names' "
+                                   f"(no deterministic form: "
+                                   f"{sorted(nondet)})"))
+    return dict(forward_s=fwd_s, steps={"+".join(k): v
+                                        for k, v in out.items()},
+                nondeterministic_ops=sorted(nondet))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1455,7 +1702,7 @@ def main() -> int:
     img, z, mst, msecs, mlaunches, mpeak = time_frames(
         mrender, msc.params, rng.PhiloxSampler(args.seed, dev), dev,
         {"philox_uniform": rng.philox_uniform,
-         "visit_order": pallas_visit.visit_order})
+         "visit_order": pallas_visit.visit_order}, n=MESH_FRAMES)
     check(all(n > 0 for n in mlaunches.values()), f"launches {mlaunches}")
     check_frame(img, z, MESH_RES, "mesh main path")
     mrays = mst["main_rays"] + mst["shadow_rays"] + mst["gi_rays"]
@@ -1475,7 +1722,7 @@ def main() -> int:
 
     # -- phase 10: device times against bounds ----------------------------
     per_frame = {name: {"dense": launches.get(name, 0) / 3,
-                        "mesh": mlaunches.get(name, 0) / 3}
+                        "mesh": mlaunches.get(name, 0) / MESH_FRAMES}
                  for name in ("philox_uniform", "fused_shadow_chunk",
                               "visit_order")}
     phase(10, f"launches per frame {per_frame}")
@@ -1603,20 +1850,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase(12, f"without rematerialisation (remat=False), one fwd+bwd step: "
               f"peak {peak_off / 2**20:.1f} MiB")
-    # -- phase 13: mesh forward+backward at 512x512 -----------------------
+    # -- phase 13: mesh forward+backward at 256x256 -----------------------
     mesh_fns = {"philox_uniform": rng.philox_uniform,
                 "visit_order": pallas_visit.visit_order}
     # no warm-up step (the budget of the whole run): phase 9's frames
-    # warmed the path up
+    # warmed the path up; a quarter of its pixels, for the same reason
+    srender = make_renderer(msc.static, cfg, MESH_STEP_RES, MESH_STEP_RES,
+                            device=dev, with_stats=True)
+    sfwd_s = timed_frame(srender, msc.params, dev, args.seed)[0]
     msecs_b, mst_b, mlaunch_b, mpeak_b, _ = time_fwd_bwd(
-        mrender, msc.params, dev, args.seed, mesh_fns, warmup=False)
+        srender, msc.params, dev, args.seed, mesh_fns, warmup=False)
     mrays_b = mst_b["main_rays"] + mst_b["shadow_rays"] + mst_b["gi_rays"]
-    phase(13, f"{MESH_RES}x{MESH_RES} mesh stand-in, RenderConfig(), "
-              f"mean(img²) over every leaf (no warm-up step): fwd+bwd s "
-              f"{msecs_b:.6f}; "
+    phase(13, f"{MESH_STEP_RES}x{MESH_STEP_RES} mesh stand-in, "
+              f"RenderConfig(), mean(img²) over every leaf (no warm-up "
+              f"step): fwd+bwd s {msecs_b:.6f}; "
               f"{mrays_b / msecs_b:.6e} rays/s (the forward's rays); "
-              f"{msecs_b / mframe_s:.3f}x phase 9's forward; peak "
+              f"{msecs_b / sfwd_s:.3f}x its forward ({sfwd_s:.6f} s); peak "
               f"{mpeak_b / 2**20:.1f} MiB; launches {mlaunch_b}")
+    del srender
     fwd_bwd_launches = {name: {"dense": blaunch.get(name, 0),
                                "mesh": mlaunch_b.get(name, 0)}
                         for name in per_frame}
@@ -1762,7 +2013,7 @@ def main() -> int:
     w = torch.rand((16, 16, 3), generator=gen_w)
     wz = torch.rand((16, 16), generator=gen_w) * 0.01
     gstatic = with_lights(gsc, 20)
-    gcfg16 = RenderConfig(max_bounces=3)
+    gcfg16 = RenderConfig(max_bounces=2)
     card = frame_grads(gstatic, gsc.params, gcfg16, 16, 16, dev, args.seed,
                        w, wz)
     cpu = frame_grads(gstatic, gsc.params, gcfg16, 16, 16,
@@ -1771,7 +2022,7 @@ def main() -> int:
           and card["materials.refractive_index"].abs().max() > 0,
           "glass grads reach kt and the refractive index")
     worst_g = grads_agree(card, cpu, "glass 16x16")
-    phase(18, f"card vs CPU grads, glass 16x16 (3 bounces, 20 lights), "
+    phase(18, f"card vs CPU grads, glass 16x16 (2 bounces, 20 lights), "
               f"every leaf finite and within tolerance; worst leaf "
               f"{worst_g}")
 
@@ -1792,11 +2043,20 @@ def main() -> int:
                     dev, tmp, n_sm)
         postprocess_phase(cimg, cz, raw, dev, tmp)
     del cimg, cz
+    torch.cuda.empty_cache()
+
+    # -- phases 29-31: the super visit order, compaction, remat names -----
+    sup = super_phase(msc, o1, d1, dev, gen, n_sm, args.seed)
+    comp = compact_phase(msc, dev, args.seed)
+    remat_phase = remat_names_phase(gsc, dev, args.seed)
     # each main path's launches, its counts set to 0 just before it ran
     by_path = {"dense_1024_3_frames": launches,
-               "mesh_512_3_frames": mlaunches,
+               f"mesh_512_{MESH_FRAMES}_frames": mlaunches,
                f"glass_64_{GLASS_FRAMES}_frames": glaunches,
-               **gi["launches"]}
+               **gi["launches"],
+               **{k: {"visit_order": n} for k, n in (
+                   list(sup["launches_by_path"].items())
+                   + list(comp["launches_by_path"].items()))}}
 
     def path_launches(name):
         return {path: n[name] for path, n in by_path.items() if name in n}
@@ -1856,7 +2116,20 @@ def main() -> int:
         "split": big["split"], "passes": 2,
         "mesh_device_ms": big["mesh_device_ms"], "by_v": big["by_v"],
         "path": "glass 64x64 at bvh_visits=512 (20 lights), one frame, two "
-                "launches a call"}]}), flush=True)
+                "launches a call"}] + [{
+        "name": f"visit_order[super S={S}]", "route": "cuda",
+        "source": "c_raytracer_tpu_torch/csrc/visit_order.cu",
+        "replaces": "c_raytracer_tpu/accel/pallas_visit.py:98",
+        "launches": sup["launches_by_path"][
+            f"mesh_{MESH_RES}_super_S={S}_1_frame"],
+        "max_abs_err": 0.0, "ms": r["device_ms"], "device_ms": r["device_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None, "split": r["split"],
+        "order_ms": r["order_ms"], "ok_and_spill": sup["oks"][S],
+        "path": f"mesh stand-in {MESH_RES}x{MESH_RES} at bvh_super_group="
+                f"{SUPER_G}, bvh_super_sel={S}, one frame (the super level: "
+                f"K'=535 boxes)"}
+        for S, r in sup["recs"].items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

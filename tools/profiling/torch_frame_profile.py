@@ -3,7 +3,7 @@ spends its time on a GPU.
 
     python3 tools/profiling/torch_frame_profile.py [--scene scenes/X.json]
         [--res 1024] [--seed 0] [--tree DIR] [--gi-spp N] [--lights N]
-        [--light-chunk N] [--fwd-bwd]
+        [--light-chunk N] [--fwd-bwd] [--remat-names A,B] [--no-profile]
 
 Renders a scene (default scenes/spheres_opaque.json; mesh scenes are put in
 Morton order first) under RenderConfig() (with ``--gi-spp N``, path GI at N
@@ -15,7 +15,9 @@ scenes/meshes_glass.json --res 64 --gi-spp 4 --lights 24 --light-chunk
 over every SceneParams leaf, and kernel 2's backward calls are annotated
 (``fused_chunk_backward``): on the dense stand-in at 1024² the profiled
 step takes about four minutes, most of it the profiler's own processing.
-It prints: the frame's wall seconds, the
+``--remat-names`` sets ``RenderConfig.remat_names`` (comma-separated).
+It prints the warm-up's wall seconds and peak device memory (no
+profiler), and then, unless ``--no-profile``: the frame's wall seconds, the
 device busy seconds (the sum of CUDA kernel times; one stream, so kernels
 do not overlap), the idle share, the kernel launch count, the host time in
 stream syncs, the kernels with the most device time and the host ops with
@@ -58,6 +60,10 @@ def main() -> None:
     ap.add_argument("--light-chunk", type=int, default=40)
     ap.add_argument("--fwd-bwd", action="store_true",
                     help="profile a forward+backward step, not a frame")
+    ap.add_argument("--remat-names", default="occlusion",
+                    help="RenderConfig.remat_names, comma-separated")
+    ap.add_argument("--no-profile", action="store_true",
+                    help="time the warm-up only")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     from c_raytracer_tpu_torch.accel import reorder_scene
@@ -73,12 +79,14 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
     dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)   # a context before the peak reset
     sc = reorder_scene(load_scene(args.scene))
     static = sc.static
     if args.lights:
         static = dataclasses.replace(static, num_lights=tuple(
             min(n, args.lights) for n in static.num_lights))
-    cfg = RenderConfig(light_chunk=args.light_chunk)
+    cfg = RenderConfig(light_chunk=args.light_chunk,
+                       remat_names=tuple(args.remat_names.split(",")))
     if args.gi_spp:
         cfg = dataclasses.replace(cfg, gi_model="path",
                                   samples_per_pixel=args.gi_spp)
@@ -106,8 +114,16 @@ def main() -> None:
         with torch.profiler.record_function("fused_chunk_backward"):
             return real_bwd(ctx, g)
 
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
+    print(f"warm-up {'fwd+bwd step' if args.fwd_bwd else 'frame'} "
+          f"{args.res}x{args.res}, remat_names {cfg.remat_names}: wall "
+          f"{time.perf_counter() - t0:.6f} s, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+    if args.no_profile:
+        return
     fused_shadow._FusedChunk.backward = staticmethod(annotated)
     try:
         with profile(activities=[ProfilerActivity.CPU,
