@@ -36,9 +36,15 @@ the two-level super-cluster visit order (``bvh_super_group``,
 and any ``remat_names`` (``shadow_samples`` and ``shade_terms`` beside
 ``occlusion``, ``core/remat.py``).
 
-Still raising ``NotImplementedError``, naming the ROADMAP item that brings
-it: primitive-range shards (``accel/intersect.py`` ``make_intersector``:
-multi-GPU).
+Across ranks of a ``torch.distributed`` group (``parallel/``): pixel tiles
+over ``px``, Monte-Carlo samples over ``sp`` and primitive ranges over
+``pr`` (``geometry/sharded.py``; in one process the ranges can stack,
+``make_renderer(shards=S)``), the training step with gradients summed over
+the ranks, ``launch`` to start ranks on one host, and the multichip dry run
+(``entry.py``).
+
+Nothing is refused: every entry point and ``RenderConfig`` of the JAX
+package runs.
 """
 
 __version__ = "0.1.0"

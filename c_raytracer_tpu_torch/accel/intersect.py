@@ -18,8 +18,13 @@ and per-ray sweeps, GI child traces and the stack integrator's traces
 included) and ``closest_compact="on"`` (closest-hit ray compaction in
 blocks of 8192 rays down to 128, two or more of them).
 
-Not ported yet, and refused with ``NotImplementedError``: primitive-range
-shards (ROADMAP: multi-GPU).
+Primitive-range shards (geometry/sharded.py ``TriShards``): each shard
+sweeps its own triangle range, densely or through its own cluster sets
+(``traverse.pack_clusters_sharded``), and the per-shard results fold
+across shards, stacked in this process or gathered across the ``pr``
+ranks.  Unlike the JAX package's sharded sweeps, each shard's sweep takes
+the same opt-ins as the unsharded one (``closest_compact``,
+``bvh_super_group``, ``sweep_dead_skip``).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from c_raytracer_tpu_torch.accel import traverse
 from c_raytracer_tpu_torch.core import v3 as v3m
 from c_raytracer_tpu_torch.core.v3 import V3
 from c_raytracer_tpu_torch.geometry import primitives as G
+from c_raytracer_tpu_torch.geometry import sharded
 
 # dense is faster below this triangle count (the JAX package's threshold)
 AUTO_THRESHOLD = 512
@@ -44,10 +50,13 @@ class Intersector:
     ds: G.DeviceScene
     static: object
     cfg: object
-    clusters: traverse.ClusterSet | None = None
-    # the shadow sweep's own cluster set when its cluster size differs from
-    # the main one (bvh_shadow_cluster); None -> the main set
-    shadow_clusters: traverse.ClusterSet | None = None
+    # a ClusterSet, or with shards a tuple of them, one a local shard
+    clusters: traverse.ClusterSet | tuple | None = None
+    # the shadow sweep's own cluster set(s) when its cluster size differs
+    # from the main one (bvh_shadow_cluster); None -> the main set(s)
+    shadow_clusters: traverse.ClusterSet | tuple | None = None
+    # primitive-range shards (geometry/sharded.py), None for none
+    shards: sharded.TriShards | None = None
     # the frame's occlusion results kept for the backward's recompute, by
     # sample path (core/remat.py); None when nothing is rematerialised
     saved_occlusion: dict | None = dataclasses.field(default=None,
@@ -106,20 +115,26 @@ class Intersector:
         beyond the visit budget (0 on the dense route, which is exhaustive;
         spill == 0 proves the cluster sweep exhaustive)."""
         if self.clusters is None:
-            out = G.closest_hit_soa(self.ds, self.static, o, d,
-                                    tri_chunk=self.cfg.tri_chunk)
+            if self.shards is not None:
+                out = sharded.closest_hit_sharded(self.ds, self.static,
+                                                  self.shards, o, d)
+            else:
+                out = G.closest_hit_soa(self.ds, self.static, o, d,
+                                        tri_chunk=self.cfg.tri_chunk)
             if with_spill:
                 return out + (torch.zeros(o.x.shape, dtype=torch.int32,
                                           device=o.x.device),)
             return out
         t, gid, mat, n = G.closest_hit_soa(self.ds, self.static, o, d,
                                            include_triangles=False)
+        if self.shards is not None:
+            return self._closest_sharded(o, d, (t, gid, mat, n), with_spill)
 
         def sweep(o2, d2, t, gid, n2):
             t, gid, n2, spill = traverse.closest_hit_clusters(
                 self.clusters, o2, d2, (t, gid, n2), visits=self._visits,
                 dead_skip=self._dead_skip, with_spill=True,
-                super_group=self._super_group,
+                super_group=self._super_group(self.clusters),
                 super_sel=self.cfg.bvh_super_sel,
                 compact_block=self._closest_compact_block(o2.shape[0]))
             return t, gid, n2, spill
@@ -134,9 +149,48 @@ class Intersector:
         out = (t, gid, torch.where(is_tri, mat_tri, mat), v3m.from_aos(n2))
         return out + (spill,) if with_spill else out
 
+    def _closest_sharded(self, o: V3, d: V3, best, with_spill: bool):
+        """``closest`` over sharded clusters: each local shard's sorted
+        cluster sweep (without autograd) from an empty best, the
+        cross-shard fold (global min over t, ties to the lowest id), then
+        the sphere/plane challenge on a strictly smaller t
+        (``sharded.merge_closest``).  The spill is the max over shards."""
+        @torch.no_grad()
+        def sweep(o2, d2):
+            R = o2.shape[0]
+            parts = []
+            for cs in self.clusters:
+                t, g, sp = (
+                    torch.full((R,), traverse.FLT_MAX, device=o2.device),
+                    torch.full((R,), sharded.NO_GID, dtype=torch.int64,
+                               device=o2.device),
+                    torch.zeros(R, dtype=torch.int32, device=o2.device))
+                if cs is not None:   # None: a shard without a triangle
+                    t, g, _, sp = traverse.closest_hit_clusters(
+                        cs, o2, d2, (t, g, o2.new_zeros((R, 3))),
+                        visits=self._visits, dead_skip=self._dead_skip,
+                        with_spill=True, super_group=self._super_group(cs),
+                        super_sel=self.cfg.bvh_super_sel,
+                        compact_block=self._closest_compact_block(R))
+                row = sharded.closest_row(t, g)
+                parts.append(torch.cat([row, sp.to(row.dtype)[:, None]], 1))
+            data = sharded.stack_shards(parts, self.shards)   # (S, R, 3)
+            return sharded.fold_closest(data[..., :2]) + (
+                data[..., 2].amax(0).to(torch.int32),)
+
+        t, g, found, spill = self._chunked(
+            sweep, (v3m.to_aos(o), v3m.to_aos(d)))
+        out = sharded.merge_closest(self.ds, self.static, best, o, d, t, g,
+                                    found)
+        return out + (spill,) if with_spill else out
+
     def retest(self, o: V3, d: V3, gid):
         """Single-primitive inside-object re-test (render.c:143-144) of
-        primitive ``gid`` (P,), -1 for none.  Returns (t, hit, normal)."""
+        primitive ``gid`` (P,), -1 for none.  Returns (t, hit, normal).
+        With shards too it reads the replicated tables, which every rank
+        holds: the JAX package routes it through the owner shard so that
+        no device keeps them, and the owner's test is this one, bit for
+        bit."""
         return G.intersect_prim_soa(self.ds, o, d, gid)
 
     def tint(self, counts) -> V3:
@@ -159,9 +213,14 @@ class Intersector:
         lead = torch.broadcast_shapes(o.x.shape, d.x.shape)
         dev = d.x.device
         if self.clusters is None:
-            out = G.any_hit_counts_soa(self.ds, self.static, o, d, max_dist,
-                                       exclude_gid,
-                                       tri_chunk=self.cfg.tri_chunk)
+            if self.shards is not None:
+                out = sharded.any_hit_counts_sharded(
+                    self.ds, self.static, self.shards, o, d, max_dist,
+                    exclude_gid)
+            else:
+                out = G.any_hit_counts_soa(self.ds, self.static, o, d,
+                                           max_dist, exclude_gid,
+                                           tri_chunk=self.cfg.tri_chunk)
             if with_spill:
                 return out + (torch.zeros(lead, dtype=torch.int32,
                                           device=dev),)
@@ -169,6 +228,9 @@ class Intersector:
         blocked, counts = G.any_hit_counts_soa(self.ds, self.static, o, d,
                                                max_dist, exclude_gid,
                                                include_triangles=False)
+        if self.shards is not None:
+            return self._any_counts_sharded(o, d, max_dist, exclude_gid,
+                                            blocked, counts, with_spill)
         cs = self.clusters
         o2 = v3m.to_aos(o).expand(lead + (3,)).reshape(-1, 3)
         d2 = v3m.to_aos(d).expand(lead + (3,)).reshape(-1, 3)
@@ -183,7 +245,7 @@ class Intersector:
             acc, spill = traverse.any_hit_tint_clusters(
                 cs, o2, d2, md, ex, acc if cs.has_transp else acc[0],
                 visits=self._shadow_visits, dead_skip=self._dead_skip,
-                with_spill=True, super_group=self._super_group,
+                with_spill=True, super_group=self._super_group(cs),
                 super_sel=self.cfg.bvh_super_sel)
             return (acc if cs.has_transp else (acc,)) + (spill,)
 
@@ -194,12 +256,54 @@ class Intersector:
         out = (blocked, counts)
         return out + (spill.reshape(lead),) if with_spill else out
 
-    @property
-    def _super_group(self) -> int:
-        """G of the two-level visit order, 0 for the dense one
-        (``bvh_super_group``; its auto is 0)."""
+    def _any_counts_sharded(self, o: V3, d: V3, max_dist, exclude_gid,
+                            blocked, counts, with_spill: bool):
+        """``any_counts`` over sharded clusters: each local shard's
+        per-ray sweep from empty accumulators, folded across shards (the
+        OR, the counts added, the spill's max) into the sphere/plane
+        pre-pass ``blocked`` and ``counts``."""
+        lead = blocked.shape
+        dev = blocked.device
+        has_transp = self.shards.kt is not None
+        n_slots = len(G.tint_slots(self.static)) if has_transp else 0
+        o2 = v3m.to_aos(o).expand(lead + (3,)).reshape(-1, 3)
+        d2 = v3m.to_aos(d).expand(lead + (3,)).reshape(-1, 3)
+        ex = torch.as_tensor(exclude_gid, device=dev).expand(lead).reshape(-1)
+
+        def sweep(o2, d2, md, ex):
+            R = o2.shape[0]
+            parts = []
+            for cs in self.clusters:
+                acc = torch.zeros(R, dtype=torch.bool, device=dev)
+                if has_transp:
+                    acc = (acc, torch.zeros((R, n_slots), dtype=torch.int16,
+                                            device=dev))
+                sp = torch.zeros(R, dtype=torch.int32, device=dev)
+                if cs is not None:   # None: a shard without a triangle
+                    acc, sp = traverse.any_hit_tint_clusters(
+                        cs, o2, d2, md, ex, acc, visits=self._shadow_visits,
+                        dead_skip=self._dead_skip, with_spill=True,
+                        super_group=self._super_group(cs),
+                        super_sel=self.cfg.bvh_super_sel)
+                b, c = acc if has_transp else (acc, None)
+                parts.append(sharded.counts_row(b, c, sp))
+            b, c, sp = sharded.fold_counts(
+                sharded.stack_shards(parts, self.shards), n_slots)
+            return (b, sp) if c is None else (b, sp, c)
+
+        b, spill, *c = self._chunked(
+            sweep, (o2, d2, max_dist.expand(lead).reshape(-1), ex))
+        blocked = blocked | b.reshape(lead)
+        if c:
+            counts = counts + c[0].reshape(lead + (n_slots,))
+        out = (blocked, counts)
+        return out + (spill.reshape(lead),) if with_spill else out
+
+    def _super_group(self, cs) -> int:
+        """G of the two-level visit order over the cluster set ``cs``, 0
+        for the dense one (``bvh_super_group``; its auto is 0)."""
         return self.cfg.resolved_super_group(self._any_transparent,
-                                             self.clusters.lo.shape[0])
+                                             cs.lo.shape[0])
 
     def _closest_compact_block(self, n_rays: int) -> int:
         """Rays a block of closest-hit compaction (0 = off): with
@@ -232,8 +336,9 @@ class Intersector:
             return pb
         return pb if n_pixels >= 512 else 0
 
-    def _union_sweep(self, origin_aos, dirs, egid, acc, live):
-        """The union shadow sweep of ``shadow_query``: (acc, spill_max).
+    def _union_sweep(self, scs, origin_aos, dirs, egid, acc, live):
+        """The union shadow sweep of ``shadow_query`` over the cluster set
+        ``scs``: (acc, spill_max).
 
         "frame" scope (and "auto"): one union list per pixel over all its
         samples, and every sample tested against each listed cluster in
@@ -242,7 +347,6 @@ class Intersector:
         by list length (a stable sort), swept in blocks that each stop at
         their own longest list, and put back.  "chunk" scope: a list and a
         sweep per chunk.  Every option gives the same result."""
-        scs = self._shadow_cs
         P = origin_aos.shape[0]
         nc = len(dirs)
         uv = self.cfg.resolved_union_visits(scs.has_transp)
@@ -322,7 +426,8 @@ class Intersector:
         sphere casts no shadow at all in the union and shared modes, while
         its per-ray mode tints; the port keeps them in every mode."""
         scs = self._shadow_cs
-        has_transp = scs.has_transp
+        has_transp = (scs.has_transp if self.shards is None
+                      else self.shards.kt is not None)
 
         # sphere/plane pre-pass per chunk; the chunk's directions in the
         # (P, lc, ...) layout the cluster sweeps take
@@ -353,10 +458,21 @@ class Intersector:
             acc = blocked_pm
             if counts[0] is not None:
                 pre_counts = torch.stack(counts, 0)   # (nc, lc, P, slots)
+        args = (origin_aos, dirs, cached_dirs, egid, emitter_lo, emitter_hi,
+                live)
+        if self.shards is None:
+            acc, spill_max = self._shadow_sweep(scs, acc, *args)
+        else:
+            acc, spill_max = self._shadow_sweep_sharded(acc, *args)
+        return _query_out(acc, spill_max, pre_counts)
+
+    def _shadow_sweep(self, scs, acc, origin_aos, dirs, cached_dirs, egid,
+                      emitter_lo, emitter_hi, live):
+        """The cluster part of ``shadow_query`` over the cluster set
+        ``scs``: the union sweep, or the capsule list with the shortlist
+        or shared sweep.  Returns (acc, spill_max)."""
         if self.resolved_shadow_mode == "union":
-            acc, spill_max = self._union_sweep(origin_aos, dirs, egid, acc,
-                                               live)
-            return _query_out(acc, spill_max, pre_counts)
+            return self._union_sweep(scs, origin_aos, dirs, egid, acc, live)
         spill_max = torch.zeros((), dtype=torch.int32,
                                 device=origin_aos.device)
         cids, ok = traverse.shadow_visit_order(scs, origin_aos, emitter_lo,
@@ -370,13 +486,34 @@ class Intersector:
             sblk, sgid, lane_ok = traverse.shadow_shortlist(
                 scs, origin_aos, cids, ok, ecenter, erad, k_short)
             acc = traverse.any_hit_tint_shortlist(
-                scs, origin_aos, sblk, sgid, lane_ok, cached_dirs, nchunks,
+                scs, origin_aos, sblk, sgid, lane_ok, cached_dirs, len(dirs),
                 acc)
         else:
             acc = traverse.any_hit_tint_shared(
-                scs, origin_aos, cids, ok, cached_dirs, nchunks, acc,
+                scs, origin_aos, cids, ok, cached_dirs, len(dirs), acc,
                 dead_skip=self._dead_skip)
-        return _query_out(acc, spill_max, pre_counts)
+        return acc, spill_max
+
+    def _shadow_sweep_sharded(self, acc, *args):
+        """``_shadow_sweep`` of each local shard's cluster set from empty
+        accumulators, folded across shards (the OR, the counts added, the
+        spill's max) into the pre-pass accumulator ``acc``."""
+        has_transp = isinstance(acc, tuple)
+        parts = []
+        for scs in self._shadow_cs:
+            a = (tuple(torch.zeros_like(x) for x in acc) if has_transp
+                 else torch.zeros_like(acc))
+            sp = torch.zeros((), dtype=torch.int32, device=a[0].device)
+            if scs is not None:   # None: a shard without a triangle
+                a, sp = self._shadow_sweep(scs, a, *args)
+            b, c = a if has_transp else (a, None)
+            parts.append(sharded.counts_row(b, c, sp))
+        n_slots = acc[1].shape[-1] if has_transp else 0
+        b, c, sp = sharded.fold_counts(
+            sharded.stack_shards(parts, self.shards), n_slots)
+        if not has_transp:
+            return acc | b, sp.max()
+        return (acc[0] | b, acc[1] + c), sp.max()
 
     @torch.no_grad()
     def emitter_bounds(self, egid: int):
@@ -428,22 +565,29 @@ def make_intersector(ds: G.DeviceScene, static, cfg,
     """The intersector of a scene: dense below ``AUTO_THRESHOLD``
     triangles (``cfg.accel="auto"``), clusters packed from the current
     vertices otherwise, with a separate shadow cluster set when
-    ``bvh_shadow_cluster`` differs from ``bvh_cluster``."""
-    if shards is not None:
-        raise NotImplementedError(
-            "primitive-range shards are not ported yet (ROADMAP: multi-GPU)")
+    ``bvh_shadow_cluster`` differs from ``bvh_cluster``.  ``shards``
+    (geometry/sharded.py ``shard_triangles``) splits the triangles into
+    ranges, a cluster pack each on the cluster route."""
     nt = ds.tri_v0.shape[0]
     mode = cfg.accel
     if mode == "auto":
         mode = "cluster" if nt >= AUTO_THRESHOLD else "none"
+    if not nt:
+        shards = None
     if mode != "cluster" or not nt:
-        return Intersector(ds=ds, static=static, cfg=cfg)
+        return Intersector(ds=ds, static=static, cfg=cfg, shards=shards)
     any_transp = any(static.is_transparent)
-    clusters = traverse.pack_clusters(ds, static, cfg.bvh_cluster)
+    if shards is None:
+        def pack(c):
+            return traverse.pack_clusters(ds, static, c)
+    else:
+        def pack(c):
+            return traverse.pack_clusters_sharded(shards, static, c)
+    clusters = pack(cfg.bvh_cluster)
     c_shadow = cfg.resolved_shadow_cluster(any_transp)
     shadow_clusters = None
     if (cfg.resolved_shadow_mode(any_transp) in ("shared", "union")
             and c_shadow != cfg.bvh_cluster):
-        shadow_clusters = traverse.pack_clusters(ds, static, c_shadow)
+        shadow_clusters = pack(c_shadow)
     return Intersector(ds=ds, static=static, cfg=cfg, clusters=clusters,
-                       shadow_clusters=shadow_clusters)
+                       shadow_clusters=shadow_clusters, shards=shards)

@@ -61,8 +61,8 @@ after its last entered super, and the padding of a short last super
 overlaps every ray at entry 0; here each entered super's real members
 enter the second level once.
 
-Not ported yet, and refused where it would be taken (accel/intersect.py):
-``pack_clusters_sharded``.
+Primitive-range shards (geometry/sharded.py) pack a cluster set per shard
+(``pack_clusters_sharded``); each runs the sweeps above on its own range.
 """
 
 from __future__ import annotations
@@ -190,6 +190,50 @@ def pack_clusters(ds, static, cluster_size: int) -> ClusterSet:
         cluster_size)
     return ClusterSet(blk=blk, lo=lo, hi=hi, gid0=ns, flat=flat, bound=bound,
                       slot=slot, n_slots=len(slots))
+
+
+def pack_clusters_sharded(sh, static, cluster_size: int) -> tuple:
+    """One ClusterSet per local shard of ``sh`` (geometry/sharded.py
+    ``TriShards``), each packed from its own contiguous Morton range (any
+    contiguous slice of a Morton order is spatially tight), so that each
+    shard runs the same sorted cluster sweep.  Ids stay global: shard s
+    covers ids ns + s·m onwards, its ``gid0``.
+
+    Only a shard's triangles are packed, not the pad rows after the last
+    one: a cluster of pad rows only would have an inverted box (lo =
+    FLT_MAX > hi), and the slab test overlaps an inverted box at entry 0
+    on every ray, so such clusters would take the first visit slots of
+    every ray (the JAX package packs them).  A shard without a triangle
+    gets None."""
+    slots = tint_slots(static)
+    out = []
+    for k in range(sh.n_local):
+        n = min(max(static.n_triangles - sh.rows(k).start, 0), sh.m)
+        if not n:
+            out.append(None)
+            continue
+
+        def rows(v):
+            return torch.stack([v.x[k, :n], v.y[k, :n], v.z[k, :n]], -1)
+        valid = sh.gid[k, :n] >= 0
+        kt = transp = slot = None
+        if sh.kt is not None:
+            kt, transp = sh.kt[k, :n], sh.transp[k, :n]
+            mat_np = sh.mat[k, :n].cpu().numpy()
+            tr_np = transp.cpu().numpy()
+            slot_np = np.full(-(-n // cluster_size) * cluster_size, -1,
+                              np.int64)
+            slot_np[:n] = [slots.index(m) if t else -1
+                           for m, t in zip(mat_np.tolist(), tr_np)]
+            slot = torch.as_tensor(slot_np, device=valid.device)
+        blk, lo, hi, flat, bound = _pack_from_arrays(
+            rows(sh.v0), rows(sh.e1), rows(sh.e2), rows(sh.n),
+            sh.eps[k, :n], valid, kt, transp, cluster_size)
+        out.append(ClusterSet(
+            blk=blk, lo=lo, hi=hi,
+            gid0=static.n_spheres + sh.rows(k).start, flat=flat,
+            bound=bound, slot=slot, n_slots=len(slots)))
+    return tuple(out)
 
 
 def _k_smallest_payload(key, payload, V):

@@ -22,6 +22,7 @@ from c_raytracer_tpu_torch.accel.intersect import (AUTO_THRESHOLD,
                                                    make_intersector)
 from c_raytracer_tpu_torch.core import remat, rng
 from c_raytracer_tpu_torch.geometry import primitives as G
+from c_raytracer_tpu_torch.geometry import sharded
 from c_raytracer_tpu_torch.render.camera import primary_rays
 from c_raytracer_tpu_torch.render.config import RenderConfig
 from c_raytracer_tpu_torch.render.integrator import render_wavefront
@@ -43,9 +44,11 @@ class _Frame:
     at most the frame, the frame padded to whole tiles.  Renders tiles of
     primary rays and stitches them."""
 
-    def __init__(self, static, cfg, resx, resy, device):
+    def __init__(self, static, cfg, resx, resy, device, shard=None):
         self.static, self.cfg, self.resx, self.resy = static, cfg, resx, resy
         self.device = torch.device(device)
+        # ds -> TriShards of the frame's triangle ranges, or None
+        self.shard = shard
         self.n_pixels = resx * resy
         tile = cfg.tile_size
         if tile is None:
@@ -57,20 +60,29 @@ class _Frame:
         self.pad = self.n_tiles * self.tile - self.n_pixels
 
     def setup(self, params, grad: bool):
-        """(intersector, padded primary origins, directions) of the frame;
-        the intersector keeps the occlusion masks for the backward when
-        ``grad``, ``cfg.remat`` and ``"occlusion"`` among
+        """(intersector, padded primary origins, directions) of the
+        frame."""
+        return (self.intersector(params, grad),) + self.rays(params)
+
+    def intersector(self, params, grad: bool):
+        """The frame's intersector; it keeps the occlusion masks for the
+        backward when ``grad``, ``cfg.remat`` and ``"occlusion"`` among
         ``cfg.remat_names``."""
-        ix = make_intersector(G.device_scene(params, self.static),
-                              self.static, self.cfg)
+        ds = G.device_scene(params, self.static)
+        ix = make_intersector(ds, self.static, self.cfg,
+                              self.shard(ds) if self.shard else None)
         if (grad and self.cfg.remat
                 and remat.OCCLUSION in self.cfg.remat_names):
             ix = dataclasses.replace(ix, saved_occlusion={})
+        return ix
+
+    def rays(self, params):
+        """The padded primary origins and directions (n_tiles·tile, 3)."""
         o, d = primary_rays(params.camera, self.resx, self.resy)
         if self.pad:
             o = torch.cat([o, o.new_zeros((self.pad, 3))])
             d = torch.cat([d, d.new_zeros((self.pad, 3))])
-        return ix, o, d
+        return o, d
 
     def tiles(self, ix, o, d, sampler, first, end, with_stats):
         """Render tiles ``first`` to ``end``; tile ``i`` draws under the
@@ -103,8 +115,21 @@ def _merge_stats(parts):
             for k in parts[0]}
 
 
+def stacked_shards(static, cfg: RenderConfig, shards: int | None):
+    """The ``_Frame`` shard function of ``shards`` triangle ranges stacked
+    in this process, None for none (or a scene without triangles)."""
+    if not shards or not static.n_triangles:
+        return None
+
+    def shard(ds):
+        return sharded.shard_triangles(ds, static, shards,
+                                       tri_chunk=cfg.tri_chunk)
+    return shard
+
+
 def make_renderer(static: T.SceneStatic, cfg: RenderConfig, resx: int,
-                  resy: int, *, device, with_stats: bool = False):
+                  resy: int, *, device, with_stats: bool = False,
+                  shards: int | None = None):
     """Build ``render_fn(params, sampler) -> (image (resy, resx, 3),
     z (resy, resx))`` (plus a stats dict with ``with_stats``) on ``device``.
 
@@ -123,8 +148,14 @@ def make_renderer(static: T.SceneStatic, cfg: RenderConfig, resx: int,
     round, light chunk and GI sample, keeping the values that
     ``cfg.remat_names`` names, by default the occlusion masks only
     (core/remat.py); without a leaf that requires grad the frame runs
-    under ``torch.no_grad``."""
-    frame = _Frame(static, cfg, resx, resy, device)
+    under ``torch.no_grad``.
+
+    ``shards``: split the triangles into that many contiguous ranges,
+    stacked in this process, each swept on its own and the results folded
+    (geometry/sharded.py) — the frame of ``shards`` ``pr`` ranks
+    (parallel/render_sharded.py) in one process."""
+    frame = _Frame(static, cfg, resx, resy, device,
+                   stacked_shards(static, cfg, shards))
 
     def render_fn(params, sampler):
         params = params_to_torch(params, frame.device)

@@ -54,11 +54,23 @@ to plain, small frames card vs CPU and against the dense order, and
 512x512 mesh frames at the defaults and at S = 16 and 48 in turns (29);
 closest-hit ray compaction at tiles of 16384, on vs off bit-equal, and
 frame seconds on, off and at the default tile (30); and one glass
-forward+backward step at 32x32 (3 bounces) under each ``remat_names``
-tuple, with its seconds, peak and grads against the default names' (31).
+forward+backward step at 32x32 (3 bounces) under the default
+``remat_names`` and all three names, with its seconds, peak and grads
+against the default names' (31).
+Phases 32-34 drive the mesh of ranks (parallel/): kernel 3 at the
+per-shard shape (the mesh stand-in's 4 triangle ranges) bit-equal to
+plain and timed, exhaustive 64x64 mesh frames in 2 and 4 stacked
+ranges and 32x32 glass frames in 2 bit-equal to unsharded, and 512x512
+mesh frames by range count (32); two gloo ranks sharing the card
+(px = 2 dense 1024x1024, pr = 2 mesh 64x64, sp = 2 dense GI 64x64
+against one process; a dense and a mesh train step, grads within
+1e-6·max|g| of one process; the collectives' host ms), and the dense step
+on an NCCL group of one rank (33); the multichip dry run on two gloo
+ranks sharing the card (34).
 To fit the time limit the flagship runs at 2 bounces (its 16x16 grads at
 1), the mesh path times 2 frames and its step runs at 256x256, the glass
-path times 1 frame and its 16x16 grads run at 2 bounces.
+path times 1 frame and its 16x16 grads run at 2 bounces, and phase 31
+takes two remat_names tuples of four.
 Each phase prints one
 line or a few; any failed check raises, so the script exits non-zero and
 prints no result.  The last two lines are the kernels' JSON summary and
@@ -1279,8 +1291,9 @@ COMPACT_TILE = 16384       # phase 30: tiles of 16384 rays,
 COMPACT_BLOCK = 8192       # two compaction blocks of 8192 each
 REMAT_RES = 32             # phase 31: phase 18's glass step at 1/4 the px
 REMAT_BOUNCES = 3          # and cut to 3 bounces
-REMAT_NAMES = (("occlusion",), ("occlusion", "shadow_samples"),
-               ("occlusion", "shade_terms"),
+# the default names and all three (the two single names are left out to
+# make room for phases 32-34; PERF.md holds their measurements)
+REMAT_NAMES = (("occlusion",),
                ("occlusion", "shadow_samples", "shade_terms"))
 
 
@@ -1441,7 +1454,7 @@ def compact_phase(msc, dev, seed) -> dict:
 
 def remat_names_phase(gsc, dev, seed) -> dict:
     """Phase 31: one forward+backward step of mean(img²) of the glass
-    stand-in at 32x32 (phase 18's configuration) under each remat_names
+    stand-in at 32x32 (phase 18's configuration) under each REMAT_NAMES
     tuple: seconds, peak memory, ratio to the forward, and grads against
     the ("occlusion",) step's, bit for bit under deterministic algorithms
     (or within 1e-6·max|g| with the ops that have no deterministic form
@@ -1502,6 +1515,345 @@ def remat_names_phase(gsc, dev, seed) -> dict:
     return dict(forward_s=fwd_s, steps={"+".join(k): v
                                         for k, v in out.items()},
                 nondeterministic_ops=sorted(nondet))
+
+
+PR_RES = 64                # phase 32-33: exhaustive mesh frames by shards
+# exhaustive sweeps, so that the frame cannot depend on how the triangles
+# split: every closest-hit list (spill 0 at 256, phase 29), a capsule list
+# that may hold every cluster, no shortlist (one of K per shard would hold
+# more candidates than one of K over all), and 40 light samples (one chunk)
+PR_CFG = RenderConfig(bvh_visits=256, bvh_shadow_visits=8556,
+                      bvh_shadow_shortlist=0, sweep_dead_skip="on")
+PR_LIGHTS = 40
+PR_SHARDS = (2, 4)         # triangle ranges stacked in one process
+PR_TIMED = (1, 2, 4)       # 512x512 mesh frames by range count, in turns
+GLASS_TUNED = dict(bvh_visits=88, bvh_shadow_visits=400)  # --accel-tune's
+STEP_RES = 64              # phase 33's train steps
+PX_RES = 1024              # phase 33's px frame (the dense main path)
+SP_RES = 64                # phase 33's sp frame
+DENSE_STEP_TILE = 1024     # four tiles of the dense step: both px ranks work
+
+
+def launch_counts():
+    return {"philox_uniform": rng.philox_uniform,
+            "fused_shadow_chunk": fused_shadow.fused_chunk,
+            "visit_order": pallas_visit.visit_order}
+
+
+def counted_frame(render, params, dev, seed):
+    """One frame: (seconds, image, z, stats, launches), every launch count
+    set to 0 just before it."""
+    fns = launch_counts()
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, z, st = render(params, rng.PhiloxSampler(seed, dev))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (secs, img, z, {k: float(v) for k, v in st.items()},
+            {k: fn.launches for k, fn in fns.items()})
+
+
+def same_frame(a, b, what: str, stats: bool = True) -> None:
+    """Frames (image, z, stats) bit-equal."""
+    check(torch.equal(a[0].cpu(), b[0].cpu()), f"{what}: image bit-equal")
+    check(torch.equal(a[1].cpu(), b[1].cpu()), f"{what}: z bit-equal")
+    if stats:
+        check(a[2] == b[2], f"{what}: stats {a[2]} vs {b[2]}")
+
+
+def shard_phase(msc, gsc, o1, d1, dev, gen, n_sm, seed) -> dict:
+    """Phase 32: primitive-range shards stacked in one process.  Kernel 3
+    at the per-shard shape (phase 7's first-round rays against each of
+    the mesh stand-in's 4 ranges' clusters) bit-equal to plain and timed;
+    exhaustive mesh frames (``PR_CFG``) at 2 and 4 ranges bit-equal to
+    the unsharded frame; the glass stand-in at the budgets
+    --accel-tune measured, 2 ranges against unsharded; the 512x512 mesh
+    stand-in at the defaults by range count, in turns."""
+    from c_raytracer_tpu_torch.accel import traverse
+    from c_raytracer_tpu_torch.geometry import sharded
+    cfg = RenderConfig()
+    ds = device_scene(params_to_torch(msc.params, dev), msc.static)
+    sh = sharded.shard_triangles(ds, msc.static, 4, tri_chunk=cfg.tri_chunk)
+    sets = traverse.pack_clusters_sharded(sh, msc.static, cfg.bvh_cluster)
+    V = cfg.resolved_visits(False)
+    R = o1.shape[0]
+    # the first-round rays, and rays aimed at each range's own boxes (the
+    # first-round rays of the frame's middle tile enter two ranges only)
+    oks = [compare_visit(o1, d1, cs.lo, cs.hi, V) for cs in sets]
+    oks += [compare_visit(*aimed_rays(cs.lo, cs.hi, R, gen), cs.lo, cs.hi, V)
+            for cs in sets]
+    Ks = [cs.lo.shape[0] for cs in sets]
+    # timed on the range that the first-round rays enter most (they enter
+    # no cluster of the first two: a call with no work, whose profile kept
+    # 7-9 of its 50 launches and failed the timing in one run)
+    k = max(range(len(sets)), key=lambda i: oks[i][0])
+    lo_k, hi_k = sets[k].lo, sets[k].hi
+    live = int((torch.isfinite(o1).all(1) & torch.isfinite(d1).all(1)).sum())
+
+    def run():
+        return pallas_visit.visit_order(o1, d1, lo_k, hi_k, V)
+    rec = time_line(
+        f"visit order per shard (range {k} of 4) R={R} K={Ks[k]} V={V}",
+        [device_ms(run, tries=5), device_ms(run, tries=5)],
+        bound_ms(4 * (6 * R + 6 * Ks[k] + 2 * R * V + R),
+                 VISIT_OPS_PER_BOX * live * Ks[k]),
+        split=str(pallas_visit.visit_split(R, Ks[k], V, n_sm)))
+    rec["plain_ms"] = device_ms(
+        lambda: pallas_visit.visit_order_reference(o1, d1, lo_k, hi_k, V),
+        10)
+    rec.update(K=Ks[k], Ks=Ks, range=k, ok_and_spill=[o[:2] for o in oks],
+               max_abs_err=max(o[2] for o in oks))
+    phase(32, f"visit-order kernel bit-equal to plain per shard, 4 ranges "
+              f"of the mesh stand-in (K = {Ks}), first-round rays R={R} "
+              f"V={V}, then rays aimed at each range's boxes (ok slots, "
+              f"spill max): {rec['ok_and_spill']}; range {k}: device "
+              f"ms {rec['device_ms']:.6f} / bound {rec['bound_ms']:.6f} "
+              f"({rec['bound_by']}) / plain {rec['plain_ms']:.6f}")
+
+    def frame(sc, cfg, res, shards):
+        return make_renderer(sc.static, cfg, res, res, device=dev,
+                             with_stats=True, shards=shards)
+
+    msc40 = dataclasses.replace(msc, static=cap_lights(msc, PR_LIGHTS))
+    ref = counted_frame(frame(msc40, PR_CFG, PR_RES, None), msc.params, dev,
+                        seed)[1:4]
+    stacked = {}
+    for S in PR_SHARDS:
+        stacked[S] = counted_frame(frame(msc40, PR_CFG, PR_RES, S),
+                                   msc.params, dev, seed)[1:4]
+        same_frame(stacked[S], ref, f"{PR_RES}x{PR_RES} mesh, {S} ranges")
+    check(ref[2]["visit_spill_max"] == 0, f"exhaustive: {ref[2]}")
+    gcfg = RenderConfig(**GLASS_TUNED)
+    g_ref = counted_frame(frame(gsc, gcfg, 32, None), gsc.params, dev,
+                          seed)[1:4]
+    g2 = counted_frame(frame(gsc, gcfg, 32, 2), gsc.params, dev, seed)[1:4]
+    same_frame(g2, g_ref, "32x32 glass, 2 ranges", stats=False)
+    check_frame(g2[0].cpu(), g2[1].cpu(), 32, "glass 2 ranges")
+    phase(32, f"{PR_RES}x{PR_RES} mesh stand-in, {PR_LIGHTS} lights, "
+              f"exhaustive sweeps: 2 and 4 "
+              f"stacked ranges bit-equal to unsharded (image, z, stats "
+              f"{ref[2]}); 32x32 glass at {GLASS_TUNED}, 2 ranges: image "
+              f"and z bit-equal to unsharded (stats {g2[2]}; unsharded "
+              f"{g_ref[2]})")
+    del ref, g_ref, g2
+
+    renders = {S: frame(msc, cfg, MESH_RES, S if S > 1 else None)
+               for S in sorted(set(PR_TIMED))}
+    runs = collections.defaultdict(list)
+    for S in PR_TIMED:
+        secs, img, z, st, n = counted_frame(renders[S], msc.params, dev,
+                                            seed)
+        check_frame(img, z, MESH_RES, f"mesh {S} ranges")
+        check(n["visit_order"] > 0 and n["philox_uniform"] > 0,
+              f"mesh {S} ranges: launches {n}")
+        runs[S].append((secs, st["visit_spill_max"], n))
+    phase(32, f"{MESH_RES}x{MESH_RES} mesh stand-in, RenderConfig(), by "
+              f"stacked ranges (frame s, visit spill max, launches), in the "
+              f"order {PR_TIMED}: {dict(runs)}")
+    return dict(rec=rec, stacked=stacked, frames={
+        S: [r[0] for r in v] for S, v in runs.items()},
+        spill={S: v[0][1] for S, v in runs.items()},
+        launches=runs[4][0][2])
+
+
+def _rank_frame(out, name, render, params, device, seed):
+    """A warm-up frame, then one timed frame with the launch and
+    collective counts set to 0 just before it, into ``out[name]``."""
+    from c_raytracer_tpu_torch.core import comm
+    render(params, rng.PhiloxSampler(seed, device))
+    comm.reset()
+    secs, img, z, st, n = counted_frame(render, params, device, seed)
+    out[name] = dict(img=img.cpu(), z=z.cpu(), stats=st, secs=secs,
+                     launches=n, comm=dict(comm.COUNTS))
+
+
+def _rank_step(out, name, static, params, cfg, mesh, device, seed):
+    """One train step (mean((img − 0)²), SGD) into ``out[name]``."""
+    from c_raytracer_tpu_torch.parallel import make_train_step
+    from c_raytracer_tpu_torch.scene import named_leaves
+    step = make_train_step(static, cfg, STEP_RES, STEP_RES, mesh,
+                           device=device, with_grads=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loss, grads = step(params, rng.PhiloxSampler(seed, device),
+                          torch.zeros((STEP_RES, STEP_RES, 3)))
+    torch.cuda.synchronize()
+    out[name] = dict(loss=float(loss), secs=time.perf_counter() - t0,
+                     grads={k: g.cpu() for k, g in named_leaves(grads)})
+
+
+def _ranks_two(rank, device, seed):
+    """Phase 33 on each of two gloo ranks sharing the card: px = 2 dense
+    1024x1024, pr = 2 mesh (phase 32's exhaustive frame), sp = 2 dense
+    64x64 path GI spp 4, and a train step each of the dense 64x64 (px = 2)
+    and the exhaustive mesh 64x64 (pr = 2)."""
+    from c_raytracer_tpu_torch.parallel import (make_mesh,
+                                                make_sharded_renderer)
+    sc = load_scene(SCENE)
+    msc = reorder_scene(load_scene(MESH_SCENE))
+    msc40 = dataclasses.replace(msc, static=cap_lights(msc, PR_LIGHTS))
+    out = {}
+    for name, s, cfg, res, mesh in (
+            ("px", sc, RenderConfig(), PX_RES, make_mesh(2)),
+            ("pr", msc40, PR_CFG, PR_RES, make_mesh(1, 1, 2)),
+            ("sp", sc, GI_CFG, SP_RES, make_mesh(1, 2))):
+        _rank_frame(out, name, make_sharded_renderer(
+            s.static, cfg, res, res, mesh, device=device, with_stats=True),
+            s.params, device, seed)
+    _rank_step(out, "px_step", sc.static, sc.params,
+               RenderConfig(tile_size=DENSE_STEP_TILE), make_mesh(2), device,
+               seed)
+    _rank_step(out, "pr_step", msc40.static, msc.params, PR_CFG,
+               make_mesh(1, 1, 2), device, seed)
+    return out
+
+
+def _rank_nccl(rank, device, seed):
+    """Phase 33's dense train step on an NCCL group of one rank."""
+    from c_raytracer_tpu_torch.parallel import make_mesh
+    out = {}
+    sc = load_scene(SCENE)
+    _rank_step(out, "px_step", sc.static, sc.params,
+               RenderConfig(tile_size=DENSE_STEP_TILE), make_mesh(), device,
+               seed)
+    return out
+
+
+def grads_close(got, want, what: str) -> dict:
+    """Every leaf within 1e-6·max|g| of the one-process grad
+    (``camera.focal_length`` at the scale of ``camera.position``).
+    Returns the largest |difference| by leaf."""
+    worst = {}
+    for k, g in want.items():
+        if not g.numel():
+            continue
+        scale = want[GRAD_SCALE_OF.get(k, k)].abs().max().item()
+        err = (got[k] - g).abs().max().item()
+        check(bool(torch.isfinite(got[k]).all()), f"{what} {k}: finite")
+        check(err <= 1e-6 * scale, f"{what} {k}: {err} > 1e-6 x {scale}")
+        worst[k] = err
+    return worst
+
+
+def ranks_phase(sc, msc, stacked, dev, seed) -> dict:
+    """Phase 33: two gloo ranks on the card (parallel/launch.py) against
+    one process, and the dense step on an NCCL group of one rank."""
+    from c_raytracer_tpu_torch.parallel import launch, make_mesh
+    from c_raytracer_tpu_torch.parallel import make_train_step
+    from c_raytracer_tpu_torch.scene import named_leaves
+    t0 = time.perf_counter()
+    ranks = launch(_ranks_two, 2, backend="gloo", device="cuda",
+                   args=(seed,))
+    launch_s = time.perf_counter() - t0
+    one_px = counted_frame(make_renderer(sc.static, RenderConfig(), PX_RES,
+                                         PX_RES, device=dev, with_stats=True),
+                           sc.params, dev, seed)[1:4]
+    local = dataclasses.replace(GI_CFG, samples_per_pixel=2)
+    reps = [make_renderer(sc.static, local, SP_RES, SP_RES, device=dev,
+                          with_stats=True)(
+        sc.params, rng.PhiloxSampler(seed, dev).fold_in(s)) for s in (0, 1)]
+    one_sp = ((reps[0][0] + reps[1][0]) / 2, reps[0][1],
+              {k: float(reps[0][2][k] + reps[1][2][k]) for k in reps[0][2]})
+    for r in ranks:
+        same_frame((r["px"]["img"], r["px"]["z"], r["px"]["stats"]), one_px,
+                   f"px=2 dense {PX_RES}x{PX_RES} vs one process")
+        same_frame((r["pr"]["img"], r["pr"]["z"], r["pr"]["stats"]),
+                   stacked, f"pr=2 mesh {PR_RES}x{PR_RES} vs 2 stacked "
+                   "ranges")
+        same_frame((r["sp"]["img"], r["sp"]["z"], r["sp"]["stats"]), one_sp,
+                   f"sp=2 dense {SP_RES}x{SP_RES} GI vs the replicas' mean")
+        for name, kernels in (("px", ("philox_uniform", "fused_shadow_chunk")),
+                              ("pr", ("philox_uniform", "visit_order"))):
+            check(all(r[name]["launches"][k] > 0 for k in kernels),
+                  f"{name} rank launches {r[name]['launches']}")
+    steps = {}
+    msc40 = dataclasses.replace(msc, static=cap_lights(msc, PR_LIGHTS))
+
+    def one_process(s, cfg, shards=None):
+        _, loss, grads = make_train_step(
+            s.static, cfg, STEP_RES, STEP_RES, make_mesh(), device=dev,
+            with_grads=True, shards=shards)(
+            s.params, rng.PhiloxSampler(seed, dev),
+            torch.zeros((STEP_RES, STEP_RES, 3)))
+        return float(loss), {k: g.cpu() for k, g in named_leaves(grads)}
+
+    # the pr ranks against one process with the same 2 ranges stacked
+    # (the same graph: geometry/sharded.py); the unsharded step's grads
+    # come from the sweep's own graph, which sums in another order, and
+    # their largest difference is printed beside
+    for name, s, cfg, shards in (
+            ("px_step", sc, RenderConfig(tile_size=DENSE_STEP_TILE), None),
+            ("pr_step", msc40, PR_CFG, 2)):
+        loss, want = one_process(s, cfg, shards)
+        check(want["tri_vertices" if name == "pr_step"
+                   else "sphere_center"].abs().max().item() > 0,
+              f"{name}: grads flow")
+        steps[name] = {}
+        for i, r in enumerate(ranks):
+            check(r[name]["loss"] == loss,
+                  f"{name} rank {i}: loss {r[name]['loss']} vs {loss}")
+            steps[name][i] = grads_close(r[name]["grads"], want,
+                                         f"{name} rank {i}")
+        steps[name]["loss"] = loss
+        steps[name]["secs"] = [r[name]["secs"] for r in ranks]
+    u_loss, u_grads = one_process(msc40, PR_CFG)
+    check(u_loss == steps["pr_step"]["loss"], "pr_step: unsharded loss")
+    steps["pr_step"]["vs_unsharded"] = max(
+        ((ranks[0]["pr_step"]["grads"][k] - g).abs().max().item()
+         / max(u_grads[GRAD_SCALE_OF.get(k, k)].abs().max().item(), 1e-30))
+        for k, g in u_grads.items() if g.numel())
+    comm_ms = {name: [r[name]["comm"]["seconds"] * 1e3 for r in ranks]
+               for name in ("px", "pr", "sp")}
+    calls = {name: [r[name]["comm"]["calls"] for r in ranks]
+             for name in ("px", "pr", "sp")}
+    frame_s = {name: [r[name]["secs"] for r in ranks]
+               for name in ("px", "pr", "sp")}
+    phase(33, f"two gloo ranks on one card ({launch_s:.1f} s for the "
+              f"launch): px=2 dense {PX_RES}x{PX_RES} and pr=2 mesh "
+              f"{PR_RES}x{PR_RES} bit-equal to one process (image, z, "
+              f"stats), sp=2 dense {SP_RES}x{SP_RES} path GI spp 4 equal "
+              f"to the mean "
+              f"of the two replicas; frame s by rank {frame_s}; host ms in "
+              f"collectives a frame {comm_ms} over {calls} calls")
+    for name in steps:
+        phase(33, f"{name} {STEP_RES}x{STEP_RES} train step on two ranks: "
+                  f"loss {steps[name]['loss']:.6e} equal to one process; "
+                  f"step s {steps[name]['secs']}; largest |grad - one "
+                  f"process| by leaf, rank 0: {steps[name][0]}"
+                  + (f"; against the unsharded step, the largest |grad "
+                     f"difference| / max|g| over the leaves "
+                     f"{steps[name]['vs_unsharded']:.3e}"
+                     if "vs_unsharded" in steps[name] else ""))
+    nccl = launch(_rank_nccl, 1, backend="nccl", device="cuda",
+                  args=(seed,))[0]["px_step"]
+    check(nccl["loss"] == steps["px_step"]["loss"], "nccl world 1: loss")
+    _, _, grads = make_train_step(
+        sc.static, RenderConfig(tile_size=DENSE_STEP_TILE), STEP_RES,
+        STEP_RES, make_mesh(), device=dev, with_grads=True)(
+        sc.params, rng.PhiloxSampler(seed, dev),
+        torch.zeros((STEP_RES, STEP_RES, 3)))
+    nccl_err = grads_close(nccl["grads"], {k: g.cpu() for k, g in
+                                           named_leaves(grads)}, "nccl")
+    phase(33, f"the dense step on an NCCL group of one rank: loss equal, "
+              f"step s {nccl['secs']:.6f}, largest |grad - one process| "
+              f"{max(nccl_err.values()):.3e}")
+    return dict(comm_ms=comm_ms, calls=calls, frame_s=frame_s,
+                steps={k: {kk: vv for kk, vv in v.items()
+                           if kk in ("loss", "secs", "vs_unsharded")}
+                       for k, v in steps.items()},
+                launch_s=launch_s)
+
+
+def dryrun_phase() -> None:
+    """Phase 34: the multichip dry run on two gloo ranks sharing the card."""
+    from c_raytracer_tpu_torch.entry import dryrun_multichip
+    t0 = time.perf_counter()
+    out = dryrun_multichip(2, backend="gloo", device="cuda")
+    phase(34, f"dryrun_multichip(2, gloo, cuda) passed both phases in "
+              f"{time.perf_counter() - t0:.1f} s: losses "
+              f"{[ph['loss'] for ph in out]}")
 
 
 def main() -> int:
@@ -2049,6 +2401,12 @@ def main() -> int:
     sup = super_phase(msc, o1, d1, dev, gen, n_sm, args.seed)
     comp = compact_phase(msc, dev, args.seed)
     remat_phase = remat_names_phase(gsc, dev, args.seed)
+
+    # -- phases 32-34: primitive-range shards, ranks, the dry run ---------
+    torch.cuda.empty_cache()
+    shp = shard_phase(msc, gsc, o1, d1, dev, gen, n_sm, args.seed)
+    rk = ranks_phase(sc, msc, shp["stacked"][2], dev, args.seed)
+    dryrun_phase()
     # each main path's launches, its counts set to 0 just before it ran
     by_path = {"dense_1024_3_frames": launches,
                f"mesh_512_{MESH_FRAMES}_frames": mlaunches,
@@ -2056,7 +2414,9 @@ def main() -> int:
                **gi["launches"],
                **{k: {"visit_order": n} for k, n in (
                    list(sup["launches_by_path"].items())
-                   + list(comp["launches_by_path"].items()))}}
+                   + list(comp["launches_by_path"].items()))},
+               f"mesh_{MESH_RES}_4_ranges_1_frame": {
+                   k: n for k, n in shp["launches"].items() if n}}
 
     def path_launches(name):
         return {path: n[name] for path, n in by_path.items() if name in n}
@@ -2129,7 +2489,22 @@ def main() -> int:
         "path": f"mesh stand-in {MESH_RES}x{MESH_RES} at bvh_super_group="
                 f"{SUPER_G}, bvh_super_sel={S}, one frame (the super level: "
                 f"K'=535 boxes)"}
-        for S, r in sup["recs"].items()]}), flush=True)
+        for S, r in sup["recs"].items()] + [{
+        "name": f"visit_order[shard K={shp['rec']['K']}]", "route": "cuda",
+        "source": "c_raytracer_tpu_torch/csrc/visit_order.cu",
+        "replaces": "c_raytracer_tpu/accel/pallas_visit.py:98",
+        "launches": shp["launches"]["visit_order"],
+        "max_abs_err": shp["rec"]["max_abs_err"],
+        "ms": shp["rec"]["device_ms"], "device_ms": shp["rec"]["device_ms"],
+        "plain_ms": shp["rec"]["plain_ms"], "bound_ms": shp["rec"]["bound_ms"],
+        "bound_by": shp["rec"]["bound_by"], "library_ms": None,
+        "split": shp["rec"]["split"], "Ks": shp["rec"]["Ks"],
+        "ok_and_spill": shp["rec"]["ok_and_spill"],
+        "frames_by_ranges": shp["frames"], "spill_by_ranges": shp["spill"],
+        "collectives_host_ms": rk["comm_ms"],
+        "path": f"mesh stand-in {MESH_RES}x{MESH_RES} in 4 stacked triangle "
+                f"ranges, one frame (kernel 3 once a range and call)"}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -41,7 +41,10 @@ def test_package_has_the_slice_modules():
                 "render/integrator.py", "render/api.py", "image/tiff.py",
                 "core/logging.py", "render/progressive.py",
                 "accel/validate.py", "cli/engine.py", "cli/postprocess.py",
-                "postprocess/ops.py"):
+                "postprocess/ops.py", "geometry/sharded.py", "core/comm.py",
+                "parallel/mesh.py", "parallel/launch.py",
+                "parallel/render_sharded.py", "parallel/train.py",
+                "entry.py"):
         assert mod in rel, mod
 
 

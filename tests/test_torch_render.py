@@ -29,12 +29,9 @@ import torch
 from c_raytracer_tpu.render import RenderConfig as JaxConfig
 from c_raytracer_tpu.render import make_renderer as jax_make_renderer
 from c_raytracer_tpu.scene import load_scene as jax_load_scene
-from c_raytracer_tpu_torch.accel import make_intersector
-from c_raytracer_tpu_torch.geometry import device_scene
 from c_raytracer_tpu_torch.render import RenderConfig, make_renderer
 from c_raytracer_tpu_torch.render.integrator import GI_TAG
-from c_raytracer_tpu_torch.scene import (load_scene, make_scene,
-                                         params_to_torch)
+from c_raytracer_tpu_torch.scene import load_scene
 
 SCENE = os.path.join(os.path.dirname(__file__), "..", "scenes",
                      "spheres_opaque.json")
@@ -136,24 +133,3 @@ def test_port_loader_renders_same_as_jax_params():
     b = fn(jsc.params, JaxKeySampler(key, 1))
     torch.testing.assert_close(a[0], b[0], rtol=0, atol=0)
     torch.testing.assert_close(a[1], b[1], rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("what", ["shards"])
-def test_outside_the_slice_raises(what):
-    """Primitive-range shards are the one thing the port still refuses,
-    naming the ROADMAP item that brings them."""
-    mats = [dict(ks=[0.5] * 3, ka=[0.1] * 3, kr=[0] * 3, kt=[0] * 3,
-                 ke=[0] * 3, shininess=8.0, refractive_index=1.0,
-                 tex_type=0, tex_color=[1, 1, 1]),
-            dict(ke=[5, 5, 5], tex_type=0, tex_color=[1, 1, 1])]
-    cam = dict(position=[0, 0, -5], vector_x=[1, 0, 0], vector_y=[0, 1, 0],
-               fov=60, focal_length=1)
-    sc = make_scene(sphere_center=[[0, 0, 0], [0, 3, 0]],
-                    sphere_radius=[1.0, 0.5], sphere_material=[0, 1],
-                    sphere_lights=[0, 8], materials=mats, camera=cam,
-                    tri_vertices=[[[2, 0, 0], [3, 0, 0], [2, 1, 0]]],
-                    tri_material=[0])
-    ds = device_scene(params_to_torch(sc.params, "cpu"), sc.static)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        make_intersector(ds, sc.static, RenderConfig(accel="cluster"),
-                         shards=object())
