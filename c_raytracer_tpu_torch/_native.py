@@ -53,6 +53,15 @@ _SIGNATURES = {
     # (o, d, lo, hi, count_max_dist or NULL, cids, entry, spill, R, K,
     #  V_total, col0, V, cluster, warps, slice, stream)
     "crt_visit_order": ("visit_order.cu", (_PTR,) * 8 + (_INT,) * 8 + (_PTR,)),
+    # the roofline probes (tools/roofline.py): (x, y, n, stream),
+    # (x, y, n, k, op, stream), (tbl, idx_in, idx_out, sums or NULL, R,
+    # width, stream)
+    "crt_roofline_stream": ("roofline.cu", (_PTR, _PTR, ctypes.c_int64,
+                                            _PTR)),
+    "crt_roofline_chain": ("roofline.cu", (_PTR, _PTR, ctypes.c_int64,
+                                           _INT, _INT, _PTR)),
+    "crt_roofline_gather": ("roofline.cu", (_PTR,) * 4 + (ctypes.c_int64,
+                                                          _INT, _PTR)),
 }
 
 

@@ -51,26 +51,35 @@ against CPU, and the reference's postprocess goldens on the card (28).  Phases
 29-31 drive the JAX package's opt-ins: the two-level super-cluster visit
 order (``bvh_super_group``), kernel 3 at the super level's shape bit-equal
 to plain, small frames card vs CPU and against the dense order, and
-512x512 mesh frames at the defaults and at S = 16 and 48 in turns (29);
-closest-hit ray compaction at tiles of 16384, on vs off bit-equal, and
-frame seconds on, off and at the default tile (30); and one glass
+256x256 mesh frames at the defaults and at S = 16 and 48 in turns (29);
+closest-hit ray compaction at 256x256 in tiles of 16384, on vs off
+bit-equal, and frame seconds on, off and at the default tile (30); and one glass
 forward+backward step at 32x32 (3 bounces) under the default
 ``remat_names`` and all three names, with its seconds, peak and grads
 against the default names' (31).
 Phases 32-34 drive the mesh of ranks (parallel/): kernel 3 at the
 per-shard shape (the mesh stand-in's 4 triangle ranges) bit-equal to
 plain and timed, exhaustive 64x64 mesh frames in 2 and 4 stacked
-ranges and 32x32 glass frames in 2 bit-equal to unsharded, and 512x512
+ranges and 32x32 glass frames in 2 bit-equal to unsharded, and 256x256
 mesh frames by range count (32); two gloo ranks sharing the card
 (px = 2 dense 1024x1024, pr = 2 mesh 64x64, sp = 2 dense GI 64x64
 against one process; a dense and a mesh train step, grads within
 1e-6·max|g| of one process; the collectives' host ms), and the dense step
 on an NCCL group of one rank (33); the multichip dry run on two gloo
 ranks sharing the card (34).
+Phases 35-37 drive the tools (c_raytracer_tpu_torch/tools/): the roofline
+probes' kernels (csrc/roofline.cu) against their plain versions at the
+probes' full sizes, then each probe timed against its published peak
+(35); the flagship tool as a subprocess on the card (8x8 at spp 2 in 2
+chunks, 4 lights, 2 of its 6 train steps at 8x8), both of its JSON lines
+checked, and its forward phase card against CPU at 8x8 (36); the
+scaling tool at 1 and 2 gloo ranks sharing the card, each count's frame
+bit-equal to one process's (37).
 To fit the time limit the flagship runs at 2 bounces (its 16x16 grads at
 1), the mesh path times 2 frames and its step runs at 256x256, the glass
-path times 1 frame and its 16x16 grads run at 2 bounces, and phase 31
-takes two remat_names tuples of four.
+path times 1 frame and its 16x16 grads run at 2 bounces, phase 31
+takes two remat_names tuples of four, and phases 29, 30 and 32 time
+their mesh frames at 256x256.
 Each phase prints one
 line or a few; any failed check raises, so the script exits non-zero and
 prints no result.  The last two lines are the kernels' JSON summary and
@@ -98,6 +107,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -1289,6 +1299,7 @@ SUPER_G = 16               # phase 29: supers of 16 mesh clusters
 SUPER_SELS = (16, 48)      # supers kept per ray
 COMPACT_TILE = 16384       # phase 30: tiles of 16384 rays,
 COMPACT_BLOCK = 8192       # two compaction blocks of 8192 each
+OPT_RES = 256              # phases 29, 30, 32: the timed mesh frames
 REMAT_RES = 32             # phase 31: phase 18's glass step at 1/4 the px
 REMAT_BOUNCES = 3          # and cut to 3 bounces
 # the default names and all three (the two single names are left out to
@@ -1316,7 +1327,7 @@ def super_phase(msc, o1, d1, dev, gen, n_sm, seed) -> dict:
     stand-in's 535 supers of 16 clusters) bit-equal to its plain version
     at S = 16 and 48, with and without count_max_dist, and timed; a 64x64
     super frame card vs CPU; a 128x128 frame with every super kept against
-    the dense order at bvh_visits=256; frame seconds of the 512x512 mesh
+    the dense order at bvh_visits=256; frame seconds of the 256x256 mesh
     stand-in at the defaults and at S = 16 and 48, in turns.  Returns the
     numbers for the kernels' JSON line."""
     from c_raytracer_tpu_torch.accel import traverse
@@ -1387,7 +1398,7 @@ def super_phase(msc, o1, d1, dev, gen, n_sm, seed) -> dict:
               f"clusters: the super order visits the nearer super first)")
     del fr, full
 
-    renders = {name: make_renderer(msc.static, cfg, MESH_RES, MESH_RES,
+    renders = {name: make_renderer(msc.static, cfg, OPT_RES, OPT_RES,
                                    device=dev, with_stats=True)
                for name, cfg in (
                    ("default", RenderConfig()),
@@ -1398,26 +1409,26 @@ def super_phase(msc, o1, d1, dev, gen, n_sm, seed) -> dict:
     for name in ("default", "S=16", "S=48"):
         secs, img, z, st, n = timed_frame(renders[name], msc.params, dev,
                                           seed)
-        check_frame(img, z, MESH_RES, f"mesh {name}")
+        check_frame(img, z, OPT_RES, f"mesh {name}")
         check(n > 0, f"mesh {name}: visit-order launches {n}")
         runs[name].append((secs, st["visit_spill_max"], n))
-    phase(29, f"{MESH_RES}x{MESH_RES} mesh stand-in frame s (visit spill "
+    phase(29, f"{OPT_RES}x{OPT_RES} mesh stand-in frame s (visit spill "
               f"max, kernel 3 launches), in the order default, S=16, S=48: "
               f"{dict(runs)}")
     return dict(recs=recs, oks=oks, launches=runs["S=16"][0][2],
                 frames={k: [r[0] for r in v] for k, v in runs.items()},
-                launches_by_path={f"mesh_{MESH_RES}_super_{k}_1_frame":
+                launches_by_path={f"mesh_{OPT_RES}_super_{k}_1_frame":
                                   v[0][2] for k, v in runs.items()
                                   if k != "default"})
 
 
 def compact_phase(msc, dev, seed) -> dict:
-    """Phase 30: closest-hit ray compaction.  The mesh stand-in at 512x512
+    """Phase 30: closest-hit ray compaction.  The mesh stand-in at 256x256
     in tiles of 16384 (two blocks of 8192 a closest-hit call), compaction
     on against off: image, z and stats bit-equal, the compacted sweep
     counted; frame seconds on, off and at the default tile, in turns."""
     from c_raytracer_tpu_torch.accel import traverse
-    renders = {name: make_renderer(msc.static, cfg, MESH_RES, MESH_RES,
+    renders = {name: make_renderer(msc.static, cfg, OPT_RES, OPT_RES,
                                    device=dev, with_stats=True)
                for name, cfg in (
                    ("off", RenderConfig(tile_size=COMPACT_TILE)),
@@ -1441,14 +1452,14 @@ def compact_phase(msc, dev, seed) -> dict:
     (i0, z0, s0), (i1, z1, s1) = frames["off"], frames["on"]
     check(torch.equal(i0, i1) and torch.equal(z0, z1) and s0 == s1,
           "compaction on vs off: image, z and stats bit-equal")
-    phase(30, f"{MESH_RES}x{MESH_RES} mesh stand-in in tiles of "
+    phase(30, f"{OPT_RES}x{OPT_RES} mesh stand-in in tiles of "
               f"{COMPACT_TILE}: closest_compact on vs off bit-equal (image, "
               f"z, stats {s1}); frame s (compacted sweeps, kernel 3 "
               f"launches) in the order off, on, default tile, on, off: "
               f"{dict(runs)}")
     return dict(frames={k: [r[0] for r in v] for k, v in runs.items()},
                 launches_by_path={
-                    f"mesh_{MESH_RES}_tile_{COMPACT_TILE}_compact_1_frame":
+                    f"mesh_{OPT_RES}_tile_{COMPACT_TILE}_compact_1_frame":
                     runs["on"][0][2]})
 
 
@@ -1526,7 +1537,7 @@ PR_CFG = RenderConfig(bvh_visits=256, bvh_shadow_visits=8556,
                       bvh_shadow_shortlist=0, sweep_dead_skip="on")
 PR_LIGHTS = 40
 PR_SHARDS = (2, 4)         # triangle ranges stacked in one process
-PR_TIMED = (1, 2, 4)       # 512x512 mesh frames by range count, in turns
+PR_TIMED = (1, 2, 4)       # 256x256 mesh frames by range count, in turns
 GLASS_TUNED = dict(bvh_visits=88, bvh_shadow_visits=400)  # --accel-tune's
 STEP_RES = 64              # phase 33's train steps
 PX_RES = 1024              # phase 33's px frame (the dense main path)
@@ -1569,7 +1580,7 @@ def shard_phase(msc, gsc, o1, d1, dev, gen, n_sm, seed) -> dict:
     the mesh stand-in's 4 ranges' clusters) bit-equal to plain and timed;
     exhaustive mesh frames (``PR_CFG``) at 2 and 4 ranges bit-equal to
     the unsharded frame; the glass stand-in at the budgets
-    --accel-tune measured, 2 ranges against unsharded; the 512x512 mesh
+    --accel-tune measured, 2 ranges against unsharded; the 256x256 mesh
     stand-in at the defaults by range count, in turns."""
     from c_raytracer_tpu_torch.accel import traverse
     from c_raytracer_tpu_torch.geometry import sharded
@@ -1639,17 +1650,17 @@ def shard_phase(msc, gsc, o1, d1, dev, gen, n_sm, seed) -> dict:
               f"{g_ref[2]})")
     del ref, g_ref, g2
 
-    renders = {S: frame(msc, cfg, MESH_RES, S if S > 1 else None)
+    renders = {S: frame(msc, cfg, OPT_RES, S if S > 1 else None)
                for S in sorted(set(PR_TIMED))}
     runs = collections.defaultdict(list)
     for S in PR_TIMED:
         secs, img, z, st, n = counted_frame(renders[S], msc.params, dev,
                                             seed)
-        check_frame(img, z, MESH_RES, f"mesh {S} ranges")
+        check_frame(img, z, OPT_RES, f"mesh {S} ranges")
         check(n["visit_order"] > 0 and n["philox_uniform"] > 0,
               f"mesh {S} ranges: launches {n}")
         runs[S].append((secs, st["visit_spill_max"], n))
-    phase(32, f"{MESH_RES}x{MESH_RES} mesh stand-in, RenderConfig(), by "
+    phase(32, f"{OPT_RES}x{OPT_RES} mesh stand-in, RenderConfig(), by "
               f"stacked ranges (frame s, visit spill max, launches), in the "
               f"order {PR_TIMED}: {dict(runs)}")
     return dict(rec=rec, stacked=stacked, frames={
@@ -1854,6 +1865,144 @@ def dryrun_phase() -> None:
     phase(34, f"dryrun_multichip(2, gloo, cuda) passed both phases in "
               f"{time.perf_counter() - t0:.1f} s: losses "
               f"{[ph['loss'] for ph in out]}")
+
+
+# phase 35: each chain's largest |kernel - plain| / |plain| (the FMA chain's
+# plain version rounds each step once through float64, and a rare exact
+# midpoint twice; sinf and powf are one library on both sides); the
+# stream, the division chain and the gather's indices are bit-equal
+ROOFLINE_RTOL = {"fma": 1e-6, "sin": 1e-6, "pow": 1e-6, "div": 0.0}
+# phase 36: the flagship tool's arguments (res spp lights train_res
+# chunks; 2 of its 6 steps, each ~15 s of host-bound launches at any
+# train_res), and its forward card against CPU (res, spp, lights, chunks)
+FLAGSHIP_STEPS = 2
+FLAGSHIP_TOOL_ARGS = (8, 2, 4, 8, 2, "--steps", FLAGSHIP_STEPS)
+FLAGSHIP_CPU = (8, 2, 4, 2)
+SCALING_COUNTS = (1, 2)    # phase 37: gloo ranks sharing the card
+
+
+def roofline_phase(dev, seed) -> dict:
+    """Phase 35: the roofline probes (tools/roofline.py) at their full
+    sizes: each kernel against its plain version on the probe's own
+    starting array and on uniform inputs, then each probe timed."""
+    from c_raytracer_tpu_torch.tools import roofline as rf
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for fn in (rf.stream, rf.chain, rf.gather):
+        fn.launches = 0
+    x = torch.rand(rf.STREAM_N, device=dev, generator=gen) * 8 - 4
+    check(torch.equal(rf.stream(x), rf.stream_reference(x)),
+          "stream kernel bit-equal to plain")
+    del x
+    errs = {}
+    for op, k in (("fma", rf.FMA_K), ("sin", rf.SIN_K), ("pow", rf.POW_K),
+                  ("div", rf.DIV_K)):
+        lo, hi = {"fma": (0, 1), "sin": (0, 1), "pow": (0.1, 0.9),
+                  "div": (0.5, 2.5)}[op]
+        errs[op] = 0.0
+        for x in (rf.chain_inputs(op, rf.CHAIN_N, dev),
+                  lo + (hi - lo) * torch.rand(rf.CHAIN_N, device=dev,
+                                              generator=gen)):
+            got, want = rf.chain(x, op, k), rf.chain_reference(x, op, k)
+            check(bool(torch.isfinite(got).all()), f"{op} chain finite")
+            rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max()
+            errs[op] = max(errs[op], rel.item())
+        check(errs[op] <= ROOFLINE_RTOL[op],
+              f"{op} chain: largest relative difference {errs[op]:.3e} > "
+              f"{ROOFLINE_RTOL[op]}")
+    tbl, idx = rf.gather_inputs(dev, seed=seed)
+    out, sums = rf.gather(tbl, idx, with_sums=True)
+    want_out, want_sums = rf.gather_reference(tbl, idx)
+    check(torch.equal(out, want_out), "gather indices bit-equal to plain")
+    errs["gather_sums"] = ((sums - want_sums).abs()
+                           / want_sums.abs()).max().item()
+    check(errs["gather_sums"] <= 1e-5, f"gather sums {errs['gather_sums']}")
+    checked = {"stream": rf.stream.launches, "chain": rf.chain.launches,
+               "gather": rf.gather.launches}
+    phase(35, f"roofline kernels against their plain versions at full "
+              f"size: stream and division bit-equal, largest relative "
+              f"difference {errs}; launches {checked}")
+    lines = [probe(dev) for probe in rf.PROBES]
+    for line in lines:
+        rate = [v for k, v in line.items() if k.startswith("achieved_")][0]
+        check(rate > 0 and line["seconds"] > 0, f"{line['probe']}: {line}")
+        phase(35, json.dumps(line))
+    return dict(errs=errs, lines=lines)
+
+
+def flagship_tool_phase(gsc, dev, seed) -> dict:
+    """Phase 36: the flagship tool (tools/flagship_s5.py) as a subprocess
+    on the card, both JSON lines checked, and its forward phase card
+    against CPU on the glass stand-in."""
+    from c_raytracer_tpu_torch.tools import flagship_s5 as fs
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "c_raytracer_tpu_torch.tools.flagship_s5",
+         *map(str, FLAGSHIP_TOOL_ARGS)], cwd=REPO, capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"flagship tool: exit {proc.returncode}\n"
+                                f"{proc.stdout}\n{proc.stderr}")
+    lines = [json.loads(s) for s in proc.stdout.splitlines()
+             if s.startswith("{")]
+    check([ln.get("phase") for ln in lines] == ["forward", "train"],
+          f"flagship tool lines {lines}")
+    fwd, trn = lines
+    check(all(math.isfinite(fwd[k]) for k in ("total_radiance",
+                                              "mean_radiance")),
+          f"flagship forward finite: {fwd}")
+    check(fwd["total_radiance"] > 0 and fwd["total_rays"] > 0,
+          f"flagship forward lit: {fwd}")
+    check("shadow_spill_max" in fwd and "visit_spill_max" in fwd,
+          f"flagship spill maxima: {fwd}")
+    check(trn["loss_reduced"] is True
+          and len(trn["losses"]) == FLAGSHIP_STEPS,
+          f"flagship train: {trn}")
+    phase(36, f"flagship tool {' '.join(map(str, FLAGSHIP_TOOL_ARGS))} on "
+              f"the card in {wall:.1f} s: {json.dumps(fwd)}; "
+              f"{json.dumps(trn)}")
+
+    res, spp, lights, chunks = FLAGSHIP_CPU
+    sc = fs.cap_lights(gsc, lights)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        img, z, st, secs = fs.forward(sc, fs.forward_config(spp), res, chunks,
+                                      rng.PhiloxSampler(seed, d), device=d)
+        out[d.type] = (torch.from_numpy(img), torch.from_numpy(z), st, secs)
+    card, cpu = out["cuda"], out["cpu"]
+    check(bool(torch.isfinite(card[0]).all()), "flagship forward finite")
+    pix, zok = frames_agree(card[:3], cpu[:3], "flagship forward", share=0.99)
+    phase(36, f"flagship forward {res}x{res} spp {spp} in {chunks} chunks, "
+              f"{lights} lights: card vs CPU stats equal {card[2]}, image "
+              f"{pix:.5f} / z {zok:.5f} of pixels within 1e-4·max, bit-equal "
+              f"{torch.equal(card[0], cpu[0])}; s card {card[3]:.2f}, CPU "
+              f"{cpu[3]:.2f}")
+    return dict(tool=lines, wall=wall, agree=(pix, zok))
+
+
+def scaling_phase(dev) -> dict:
+    """Phase 37: the scaling tool (tools/bench_scaling.py) at 1 and 2 gloo
+    ranks sharing the card, each count's frame against one process's."""
+    from c_raytracer_tpu_torch.tools import bench_scaling as bs
+    results, frames = bs.run(SCALING_COUNTS, backend="gloo", device="cuda",
+                             keep_frames=True)
+    res = 256
+    sc = load_scene(SCENE)
+    one = make_renderer(sc.static, bs.scaling_config(res), res, res,
+                        device=dev)(sc.params,
+                                    rng.PhiloxSampler(bs.TIMED_SEED, dev))
+    for n in SCALING_COUNTS:
+        same_frame(frames[n], one,
+                   f"scaling tool, {n} gloo ranks vs one process",
+                   stats=False)
+    check([r["shared_card"] for r in results] == [n > 1 for n in
+                                                   SCALING_COUNTS],
+          f"shared_card flags {results}")
+    check(all(r["temp_bytes_per_device"] for r in results),
+          f"peak memory read {results}")
+    phase(37, f"bench_scaling {SCALING_COUNTS} gloo ranks on one card "
+              f"(shared_card: no scaling across cards), each frame "
+              f"bit-equal to one process's: {json.dumps(results)}")
+    return dict(scaling=results)
 
 
 def main() -> int:
@@ -2407,6 +2556,12 @@ def main() -> int:
     shp = shard_phase(msc, gsc, o1, d1, dev, gen, n_sm, args.seed)
     rk = ranks_phase(sc, msc, shp["stacked"][2], dev, args.seed)
     dryrun_phase()
+
+    # -- phases 35-37: the tools: roofline probes, flagship, scaling ------
+    torch.cuda.empty_cache()
+    roofline_phase(dev, args.seed)
+    flagship_tool_phase(gsc, dev, args.seed)
+    scaling_phase(dev)
     # each main path's launches, its counts set to 0 just before it ran
     by_path = {"dense_1024_3_frames": launches,
                f"mesh_512_{MESH_FRAMES}_frames": mlaunches,
@@ -2415,7 +2570,7 @@ def main() -> int:
                **{k: {"visit_order": n} for k, n in (
                    list(sup["launches_by_path"].items())
                    + list(comp["launches_by_path"].items()))},
-               f"mesh_{MESH_RES}_4_ranges_1_frame": {
+               f"mesh_{OPT_RES}_4_ranges_1_frame": {
                    k: n for k, n in shp["launches"].items() if n}}
 
     def path_launches(name):
@@ -2481,12 +2636,12 @@ def main() -> int:
         "source": "c_raytracer_tpu_torch/csrc/visit_order.cu",
         "replaces": "c_raytracer_tpu/accel/pallas_visit.py:98",
         "launches": sup["launches_by_path"][
-            f"mesh_{MESH_RES}_super_S={S}_1_frame"],
+            f"mesh_{OPT_RES}_super_S={S}_1_frame"],
         "max_abs_err": 0.0, "ms": r["device_ms"], "device_ms": r["device_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None, "split": r["split"],
         "order_ms": r["order_ms"], "ok_and_spill": sup["oks"][S],
-        "path": f"mesh stand-in {MESH_RES}x{MESH_RES} at bvh_super_group="
+        "path": f"mesh stand-in {OPT_RES}x{OPT_RES} at bvh_super_group="
                 f"{SUPER_G}, bvh_super_sel={S}, one frame (the super level: "
                 f"K'=535 boxes)"}
         for S, r in sup["recs"].items()] + [{
@@ -2502,7 +2657,7 @@ def main() -> int:
         "ok_and_spill": shp["rec"]["ok_and_spill"],
         "frames_by_ranges": shp["frames"], "spill_by_ranges": shp["spill"],
         "collectives_host_ms": rk["comm_ms"],
-        "path": f"mesh stand-in {MESH_RES}x{MESH_RES} in 4 stacked triangle "
+        "path": f"mesh stand-in {OPT_RES}x{OPT_RES} in 4 stacked triangle "
                 f"ranges, one frame (kernel 3 once a range and call)"}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
