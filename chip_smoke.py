@@ -36,7 +36,7 @@ and a forward+backward step (21); the host-tiled renderer against
 make_renderer, bit for bit (22); and the flagship, bench.py's scene5
 value-and-grad on the glass stand-in (64x64, 24 lights, spp 4,
 light_chunk 8), one host-tiled frame and one host-tiled value-and-grad
-step, with card against CPU grads at 16x16 (23).  Phases 24-28 drive the
+step, with card against CPU grads at 8x8 (23).  Phases 24-28 drive the
 reference's two programs: kernel 3 at lists of 384, 512 and 1024 (passes
 of 256) on the mesh and glass stand-ins' boxes, bit-equal to plain (24);
 the engine CLI as a subprocess on the default device, the dense stand-in
@@ -74,12 +74,21 @@ probes' full sizes, then each probe timed against its published peak
 chunks, 4 lights, 2 of its 6 train steps at 8x8), both of its JSON lines
 checked, and its forward phase card against CPU at 8x8 (36); the
 scaling tool at 1 and 2 gloo ranks sharing the card, each count's frame
-bit-equal to one process's (37).
-To fit the time limit the flagship runs at 2 bounces (its 16x16 grads at
-1), the mesh path times 2 frames and its step runs at 256x256, the glass
-path times 1 frame and its 16x16 grads run at 2 bounces, phase 31
-takes two remat_names tuples of four, and phases 29, 30 and 32 time
-their mesh frames at 256x256.
+bit-equal to one process's (37).  Phase 38 drives the four scene5
+diagnostics (tools/s5_*.py) on the full glass stand-in, all four at once
+as subprocesses on the card (s5_diag 16, s5_union_stats 32 8,
+s5_trunc_sweep 16 2, s5_union_bench 16 8), each line of its JAX script
+there and finite, with their kernels' launches; s5_diag and
+s5_union_stats also in this process, every count card against CPU.  Its
+runs, phase 37 and phase 36's own card against CPU forward go beside
+phase 36's flagship tool.
+To fit the time limit the flagship runs at 2 bounces (its grads at 1
+and 8x8), the mesh path times 2 frames and its step runs at 256x256, the
+glass path times 1 frame and its 16x16 grads run at 2 bounces, phase 31
+takes two remat_names tuples of four, phases 29, 30 and 32 time
+their mesh frames at 256x256, the glass frames that count kernel 3's
+launches at bvh_visits = 128, 256 and 512 run at 32x32, and phases 37-38
+run beside phase 36's tool.
 Each phase prints one
 line or a few; any failed check raises, so the script exits non-zero and
 prints no result.  The last two lines are the kernels' JSON summary and
@@ -93,7 +102,10 @@ event time around 20 launches issued one by one from Python, which for a
 short kernel measures the host's issue rate.  ``bound ms`` is the least
 time an H100 SXM could take for the same work: the larger of the bytes
 moved (each input read once, each output written once) over 3.35 TB/s and
-the float operations over 67 TFLOP/s.
+the float operations over 67 TFLOP/s.  Kernel 2's operations weigh each
+sinf/cosf, powf and division by what the roofline tool's chains measure
+on the card in phase 10 (``ops_count: "probe-weighted"``), a sqrtf at 4;
+the data-sheet count (205 a live sample) stays beside it.
 
 It imports torch, numpy and the port only (never JAX).
 """
@@ -115,6 +127,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -146,6 +159,9 @@ MESH_FRAMES = 2       # timed frames of the mesh and glass main paths: few
 GLASS_FRAMES = 1      # enough to keep the run within its time
 EXAMPLE_SCENE = "scenes/example.json"
 GLASS_LISTS = (64, 128, 256)   # kernel 3's list sizes on the glass path
+# the glass frames that count kernel 3's launches at bvh_visits = 128, 256
+# (phase 14) and 512 (phase 24): one tile, to keep the run within its time
+GLASS_LAUNCH_RES = 32
 # path GI at bench.py:97's settings, and bench.py:251-285's flagship (its
 # lights capped at 24; the auto cluster tile of 2048, not its tile of 512;
 # cut to 2 bounces, FLAGSHIP_BOUNCES, to keep the run within its time)
@@ -154,6 +170,7 @@ FLAGSHIP_BOUNCES = 2
 FLAGSHIP_CFG = RenderConfig(gi_model="path", samples_per_pixel=4,
                             light_chunk=8, max_bounces=FLAGSHIP_BOUNCES)
 FLAGSHIP_LIGHTS = 24
+FLAGSHIP_GRAD_RES = 8   # its card vs CPU grads (the CPU's time)
 KAT = {  # Random123 philox4x32_10, counter 0, key 0
     "ctr0_key0": (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)}
 COMBOS = [(phong, att) for phong in (True, False)
@@ -162,11 +179,16 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 # float operations per unit of work, counted from the kernels' formulas:
 # the slab test of one box (6 sub, 6 mul, 12 min/max, the clamp and the
-# overlap compare); one live soft-shadow sample (a sinf or cosf counted as
-# 20, a powf as 30, a sqrt or an IEEE division as 4-8), and each occluding
-# sphere and plane it is tested against
+# overlap compare); one live soft-shadow sample of csrc/fused_shadow.cu by
+# kind (plain operations, sinf/cosf, sqrtf, IEEE divisions, powf), and
+# each occluding sphere and plane it is tested against
 VISIT_OPS_PER_BOX = 25
-FUSED_OPS_PER_SAMPLE = 205
+FUSED_PER_SAMPLE = {"plain": 79, "sin": 4, "sqrt": 2, "div": 2, "pow": 1}
+# what one sqrtf, sinf or cosf, IEEE division and powf weigh in float32
+# operations: the data-sheet count the bound used first (205 a sample),
+# and the sqrtf's weight, which the probe-weighted count keeps; phase 10
+# weighs the rest by the roofline probes' chains (tools/roofline.py)
+DATASHEET_OP_WEIGHTS = {"sqrt": 4, "sin": 20, "div": 4, "pow": 30}
 FUSED_OPS_PER_SPHERE = 30
 FUSED_OPS_PER_PLANE = 25
 # card against CPU grads, each leaf: max |diff| <= GRAD_MAX_RTOL · scale
@@ -285,6 +307,36 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     by_ops = n_ops / F32_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def probe_op_weights(dev) -> dict:
+    """Float32 operations of peak that one sinf, powf and IEEE division
+    cost on this card, from the roofline tool's chain probes (CUDA events,
+    milliseconds each); the sqrtf keeps its data-sheet weight."""
+    from c_raytracer_tpu_torch.tools import roofline as rf
+    lines = {"sin": rf.probe_trans(dev), "pow": rf.probe_pow(dev),
+             "div": rf.probe_div(dev)}
+    return {"sqrt": DATASHEET_OP_WEIGHTS["sqrt"],
+            **{k: line[f"f32_ops_per_{k}"] for k, line in lines.items()}}
+
+
+def fused_bound(samples: int, P: int, live: int, n_scal: int, ns: int,
+                npl: int, weights: dict) -> dict:
+    """Kernel 2's bound on a chunk: the one of the probe-weighted
+    operation count, as (ms, by), and beside it the data-sheet count's
+    ms.  Bytes: u of the live samples, the okf row, the live pixels' other
+    16 rows, the scene scalars, the (3, P) output."""
+    need = 4 * (2 * samples + P + 16 * live + n_scal + 3 * P)
+    occluders = FUSED_OPS_PER_SPHERE * (ns - 1) + FUSED_OPS_PER_PLANE * npl
+
+    def ops(w):
+        per = FUSED_PER_SAMPLE["plain"] + sum(
+            n * w[k] for k, n in FUSED_PER_SAMPLE.items() if k != "plain")
+        return samples * (per + occluders)
+
+    return {"bound": bound_ms(need, ops(weights)),
+            "datasheet_bound_ms": bound_ms(need,
+                                           ops(DATASHEET_OP_WEIGHTS))[0]}
 
 
 def time_line(what: str, dev: list[float], bound: tuple[float, str],
@@ -680,8 +732,9 @@ def flagship_grads(static, params, res, device, seed):
     return {n: x.cpu() for n, x in named_leaves(g)}
 
 
-def gi_phases(sc, gsc, dev, seed, gen, n_sm) -> dict:
-    """Phases 19-23: path-traced GI and the host-tiled entry points.
+def gi_phases(sc, gsc, dev, seed, gen, n_sm, op_weights) -> dict:
+    """Phases 19-23: path-traced GI and the host-tiled entry points
+    (``op_weights``: phase 10's probe weights of kernel 2's operations).
     Returns the numbers for the kernels' JSON line."""
     cpu = torch.device("cpu")
     out = {"kernel_gi": collections.defaultdict(list), "launches": {}}
@@ -739,18 +792,19 @@ def gi_phases(sc, gsc, dev, seed, gen, n_sm) -> dict:
     P = cpx.shape[1]
     live = int((cpx[16] > 0).sum())
     samples = live * min(ckw["lc"], cnv)
-    ops = samples * (FUSED_OPS_PER_SAMPLE
-                     + FUSED_OPS_PER_SPHERE * (ckw["ns"] - 1)
-                     + FUSED_OPS_PER_PLANE * ckw["npl"])
+    fb = fused_bound(samples, P, live, csf.numel(), ckw["ns"], ckw["npl"],
+                     op_weights)
 
     def run2():
         return fused_shadow.fused_chunk(cu, cpx, csf, cnv, **ckw)
 
+    dev_runs = [device_ms(run2), device_ms(run2)]
     out["kernel_gi"]["fused_shadow_chunk"].append(dict(time_line(
         f"fused chunk at GI child hits lc={ckw['lc']} P={P} ({live} live "
-        f"pixels)", [device_ms(run2), device_ms(run2)],
-        bound_ms(4 * (2 * samples + P + 16 * live + csf.numel() + 3 * P),
-                 ops)), max_abs_err=err2, plain_ms=device_ms(
+        f"pixels)", dev_runs, fb["bound"], ops_count="probe-weighted",
+        datasheet_bound_ms=fb["datasheet_bound_ms"],
+        datasheet_share=fb["datasheet_bound_ms"] / mean(dev_runs)),
+        max_abs_err=err2, plain_ms=device_ms(
         lambda: fused_shadow.fused_chunk_reference(cu, cpx, csf, cnv, **ckw),
         10)))
     vcalls = capture_gi_visit(gstatic20, gsc.params, FLAGSHIP_CFG,
@@ -892,10 +946,12 @@ def gi_phases(sc, gsc, dev, seed, gen, n_sm) -> dict:
               f"{vlaunch}")
     del grads, vg, hrender
     torch.cuda.empty_cache()
-    card = flagship_grads(fstatic, gsc.params, 16, dev, seed)
-    cpu_g = flagship_grads(fstatic, gsc.params, 16, cpu, seed)
-    worst = grads_agree(card, cpu_g, "flagship 16x16")
-    phase(23, f"flagship card vs CPU grads at 16x16 (1 bounce), every "
+    card = flagship_grads(fstatic, gsc.params, FLAGSHIP_GRAD_RES, dev, seed)
+    cpu_g = flagship_grads(fstatic, gsc.params, FLAGSHIP_GRAD_RES, cpu, seed)
+    worst = grads_agree(card, cpu_g, f"flagship {FLAGSHIP_GRAD_RES}x"
+                                     f"{FLAGSHIP_GRAD_RES}")
+    phase(23, f"flagship card vs CPU grads at {FLAGSHIP_GRAD_RES}x"
+              f"{FLAGSHIP_GRAD_RES} (1 bounce), every "
               f"leaf finite and within tolerance; worst leaf {worst}")
     return out
 
@@ -952,7 +1008,7 @@ def big_list_phase(mesh, glass, glass_rec, gsc, dev, gen, n_sm, seed):
     # calls do not depend on the count) for its launches a frame
     pallas_visit.visit_order.launches = 0
     make_renderer(with_lights(gsc, 20), RenderConfig(bvh_visits=512),
-                  GLASS_RES, GLASS_RES, device=dev)(
+                  GLASS_LAUNCH_RES, GLASS_LAUNCH_RES, device=dev)(
         gsc.params, rng.PhiloxSampler(seed, dev))
     torch.cuda.synchronize()
     n512 = pallas_visit.visit_order.launches
@@ -965,8 +1021,8 @@ def big_list_phase(mesh, glass, glass_rec, gsc, dev, gen, n_sm, seed):
         f"{k[0]} V={k[1]} {r['device_ms']:.6f} / {r['bound_ms']:.6f} / "
         f"{r['plain_ms']:.6f}" for k, r in timing.items())
         + f"; glass V=256 in phase 14: {glass_rec[256]['device_ms']:.6f}; "
-        f"launches of a glass {GLASS_RES}x{GLASS_RES} frame at "
-        f"bvh_visits=512: {n512} (2 passes a call)")
+        f"launches of a glass {GLASS_LAUNCH_RES}x{GLASS_LAUNCH_RES} frame "
+        f"at bvh_visits=512: {n512} (2 passes a call)")
     rec = dict(timing[("glass", 512)], launches_per_frame=n512,
                max_abs_err=err,
                mesh_device_ms=timing[("mesh", 512)]["device_ms"],
@@ -1929,20 +1985,32 @@ def roofline_phase(dev, seed) -> dict:
     return dict(errs=errs, lines=lines)
 
 
-def flagship_tool_phase(gsc, dev, seed) -> dict:
+def flagship_tool_phase(gsc, dev, seed, beside) -> dict:
     """Phase 36: the flagship tool (tools/flagship_s5.py) as a subprocess
     on the card, both JSON lines checked, and its forward phase card
-    against CPU on the glass stand-in."""
+    against CPU on the glass stand-in.  The check and ``beside()`` (work
+    of another phase) run while the tool does, so the tool's seconds
+    include that sharing of the card and the host; returns beside()'s
+    result under ``beside``."""
     from c_raytracer_tpu_torch.tools import flagship_s5 as fs
     t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "c_raytracer_tpu_torch.tools.flagship_s5",
-         *map(str, FLAGSHIP_TOOL_ARGS)], cwd=REPO, capture_output=True,
-        text=True, timeout=600)
+         *map(str, FLAGSHIP_TOOL_ARGS)], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    res, spp, lights, chunks = FLAGSHIP_CPU
+    sc = fs.cap_lights(gsc, lights)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        img, z, st, secs = fs.forward(sc, fs.forward_config(spp), res, chunks,
+                                      rng.PhiloxSampler(seed, d), device=d)
+        out[d.type] = (torch.from_numpy(img), torch.from_numpy(z), st, secs)
+    side = beside()
+    stdout, stderr = proc.communicate(timeout=600)
     wall = time.perf_counter() - t0
     check(proc.returncode == 0, f"flagship tool: exit {proc.returncode}\n"
-                                f"{proc.stdout}\n{proc.stderr}")
-    lines = [json.loads(s) for s in proc.stdout.splitlines()
+                                f"{stdout}\n{stderr}")
+    lines = [json.loads(s) for s in stdout.splitlines()
              if s.startswith("{")]
     check([ln.get("phase") for ln in lines] == ["forward", "train"],
           f"flagship tool lines {lines}")
@@ -1958,16 +2026,8 @@ def flagship_tool_phase(gsc, dev, seed) -> dict:
           and len(trn["losses"]) == FLAGSHIP_STEPS,
           f"flagship train: {trn}")
     phase(36, f"flagship tool {' '.join(map(str, FLAGSHIP_TOOL_ARGS))} on "
-              f"the card in {wall:.1f} s: {json.dumps(fwd)}; "
-              f"{json.dumps(trn)}")
-
-    res, spp, lights, chunks = FLAGSHIP_CPU
-    sc = fs.cap_lights(gsc, lights)
-    out = {}
-    for d in (dev, torch.device("cpu")):
-        img, z, st, secs = fs.forward(sc, fs.forward_config(spp), res, chunks,
-                                      rng.PhiloxSampler(seed, d), device=d)
-        out[d.type] = (torch.from_numpy(img), torch.from_numpy(z), st, secs)
+              f"the card in {wall:.1f} s (beside its CPU check, phase 37 "
+              f"and phase 38's runs): {json.dumps(fwd)}; {json.dumps(trn)}")
     card, cpu = out["cuda"], out["cpu"]
     check(bool(torch.isfinite(card[0]).all()), "flagship forward finite")
     pix, zok = frames_agree(card[:3], cpu[:3], "flagship forward", share=0.99)
@@ -1976,7 +2036,7 @@ def flagship_tool_phase(gsc, dev, seed) -> dict:
               f"{pix:.5f} / z {zok:.5f} of pixels within 1e-4·max, bit-equal "
               f"{torch.equal(card[0], cpu[0])}; s card {card[3]:.2f}, CPU "
               f"{cpu[3]:.2f}")
-    return dict(tool=lines, wall=wall, agree=(pix, zok))
+    return dict(tool=lines, wall=wall, agree=(pix, zok), beside=side)
 
 
 def scaling_phase(dev) -> dict:
@@ -2003,6 +2063,184 @@ def scaling_phase(dev) -> dict:
               f"(shared_card: no scaling across cards), each frame "
               f"bit-equal to one process's: {json.dumps(results)}")
     return dict(scaling=results)
+
+
+# phase 38: the scene5 diagnostics (tools/s5_*.py) on the full glass
+# stand-in, resolution and light count cut to fit; a number in their lines
+# is a finite decimal (nan and inf do not match NUM)
+S5_ARGS = {"s5_diag": (16,), "s5_union_stats": (32, 8),
+           "s5_trunc_sweep": (16, 2), "s5_union_bench": (16, 8)}
+NUM = r"-?\d+(?:\.\d+)?(?:e[+-]?\d+)?"
+
+
+def s5_patterns(tool: str, args) -> list:
+    """The lines of the JAX script ``tools/profiling/<tool>.py`` at
+    ``args``, as regular expressions, in order."""
+    from c_raytracer_tpu_torch.tools import (s5_diag, s5_trunc_sweep,
+                                             s5_union_bench, s5_union_stats)
+    N = NUM
+    if tool == "s5_diag":
+        P = args[0] ** 2
+        return ([r"tris \d+ spheres \d+ planes \d+ emitters \(.+\) "
+                 r"transp mats \(.+\)"]
+                + [rf"closest v={v}: gid mismatches \d+/{P}, t err "
+                   rf"\(matched\) {N}" for v in s5_diag.VISITS]
+                + [rf"primary closest overlap: max \d+ mean {N}; spill>0 on "
+                   rf"\d+/{P} rays \(V=16\)"]
+                + [rf"shadow sv={sv} K={k}: blocked mismatch \d+/\d+, tint "
+                   rf"err {N}" for sv, k in s5_diag.SHADOW_BUDGETS]
+                + [rf"shadow spill \(V=16,K=32\) at hit pts: cluster spill "
+                   rf"max \d+ mean {N}; tri spill max \d+ mean {N}"])
+    if tool == "s5_union_stats":
+        return ([r"tris \d+ emitter gid \d+ num_lights \d+",
+                 rf"primary hits \d+ / {args[0] ** 2}"]
+                + [rf"C=\s*{C} K=\s*\d+ \| per-seg overlap: mean\s+{N} "
+                   rf"p50\s+{N} p95\s+{N} p99\s+{N} max\s+\d+ \| px-union: "
+                   rf"mean\s+{N} p95\s+{N} p99\s+{N} max\s+\d+"
+                   for C in s5_union_stats.CLUSTER_SIZES]
+                + [rf"super G=\s*{G} Ks=\s*\d+ \| per-seg: mean\s+{N} "
+                   rf"p99\s+{N} max\s+\d+ \| px-union: mean\s+{N} p99\s+{N} "
+                   rf"max\s+\d+" for G in s5_union_stats.SUPER_GROUPS])
+    if tool == "s5_trunc_sweep":
+        return ([rf"brute: {N}s  max={N} mean={N}"]
+                + [rf"v={v} sv={sv} K={k}:\s+{N}s  maxabs={N} rel={N} "
+                   rf"rel\(bright\)={N}"
+                   for v, sv, k in s5_trunc_sweep.BUDGETS])
+    res, lights = args
+    delta = rf"  max\|Δ\| vs first {N} \(rel {N}\)"
+    return ([rf"{re.escape(os.path.basename(GLASS_SCENE))} {res}x{res}, "
+             rf"lights capped {lights}, \d+ tris"]
+            + [rf"{name}\s*:\s+{N} s/frame \(first {N}s\) total radiance "
+               rf"{N}" + (delta if i else "")
+               for i, name in enumerate(s5_union_bench.CONFIGS)])
+
+
+def s5_segments(gsc, res: int, lc: int, d):
+    """s5_union_stats' segments on device ``d`` and its C = 16 clusters:
+    (lo, hi, hit points, light directions, light distances)."""
+    from c_raytracer_tpu_torch.accel import traverse
+    from c_raytracer_tpu_torch.tools import s5_union_stats
+    params = params_to_torch(gsc.params, d)
+    ds = device_scene(params, gsc.static)
+    _, hp, ldir, ldist, _ = s5_union_stats.segments(
+        ds, gsc.static, params.camera, res, lc, rng.PhiloxSampler(0, d))
+    cs = traverse.pack_clusters(ds, gsc.static, 16)
+    return cs.lo, cs.hi, hp, ldir, ldist
+
+
+def s5_runs(gsc, dev) -> dict:
+    """Phase 38's work, run while phase 36's flagship tool runs: the four
+    scene5 diagnostics started as subprocesses on the card (all four at
+    once), then s5_diag and s5_union_stats in this process on the card,
+    their launches counted, and on the CPU."""
+    from c_raytracer_tpu_torch.tools import s5_diag, s5_union_stats
+    t0 = time.perf_counter()
+    procs = {}
+    for tool, args in S5_ARGS.items():
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        procs[tool] = (subprocess.Popen(
+            [sys.executable, "-m", f"c_raytracer_tpu_torch.tools.{tool}",
+             *map(str, args)], cwd=REPO, stdout=out, stderr=err, text=True),
+            out, err)
+    cpu = torch.device("cpu")
+    runs = {"s5_diag": lambda d: s5_diag.run(gsc, *S5_ARGS["s5_diag"],
+                                             device=d),
+            "s5_union_stats": lambda d: s5_union_stats.run(
+                gsc, *S5_ARGS["s5_union_stats"],
+                sampler=rng.PhiloxSampler(0, d), device=d)}
+    fns = launch_counts()
+    here, launches = {}, {}
+    for tool, run in runs.items():
+        for fn in fns.values():
+            fn.launches = 0
+        card = run(dev)
+        torch.cuda.synchronize()
+        launches[tool + " (this process)"] = {k: fn.launches
+                                              for k, fn in fns.items()}
+        here[tool] = (card, run(cpu))
+    return dict(t0=t0, procs=procs, here=here, launches=launches)
+
+
+def s5_tools_phase(gsc, dev, runs: dict) -> dict:
+    """Phase 38: the four scene5 diagnostics of ``s5_runs``: each
+    subprocess's lines those of its JAX script, finite, and its kernels'
+    launches; the in-process card lines equal to the subprocess's and
+    their counts to the CPU's; s5_union_stats' slab test on the CPU's
+    segments bit-equal on the card."""
+    from c_raytracer_tpu_torch.tools import s5_union_stats
+    here, launches = runs["here"], runs["launches"]
+    cpu = torch.device("cpu")
+    lines = {}
+    for tool, (proc, out, err) in runs["procs"].items():
+        rc = proc.wait(timeout=300)
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+        out.close()
+        err.close()
+        check(rc == 0, f"{tool} {S5_ARGS[tool]}: exit {rc}\n{stdout}\n"
+                       f"{stderr[-4000:]}")
+        got = stdout.splitlines()
+        want = s5_patterns(tool, S5_ARGS[tool])
+        check(len(got) == len(want)
+              and all(re.fullmatch(w, g) for g, w in zip(got, want)),
+              f"{tool}: lines {got} against the JAX script's {want}")
+        lines[tool] = got
+        counts = [json.loads(s)["launches"] for s in stderr.splitlines()
+                  if s.startswith('{"launches"')]
+        check(len(counts) == 1 and counts[0]["visit_order"] > 0
+              and (counts[0]["philox_uniform"] > 0) == (tool != "s5_diag"),
+              f"{tool}: kernel launches {counts}")
+        launches[tool] = counts[0]
+    wall = time.perf_counter() - runs["t0"]
+
+    # s5_diag: every count card against CPU
+    (card, card_lines), (cpu_rec, _) = here["s5_diag"]
+    check(card_lines == lines["s5_diag"],
+          "s5_diag: the subprocess's lines are this process's")
+
+    def counts(recs):
+        return [{k: v for k, v in r.items() if isinstance(v, int)}
+                for r in recs]
+
+    check(counts(card) == counts(cpu_rec),
+          f"s5_diag card vs CPU counts: {card} against {cpu_rec}")
+    # s5_union_stats: every count card against CPU, though the light
+    # points' sinf and cosf round differently on the card (phase 15); and
+    # the slab test on the CPU's segments bit-equal on the card
+    (card, card_lines), (cpu_rec, cpu_lines) = here["s5_union_stats"]
+    check(card_lines == lines["s5_union_stats"],
+          "s5_union_stats: the subprocess's lines are this process's")
+    check(card_lines == cpu_lines and all(
+        np.array_equal(a[k], b[k]) for a, b in zip(card, cpu_rec)
+        for k in ("per_seg", "per_px")),
+        f"s5_union_stats card vs CPU: {card_lines} against {cpu_lines}")
+    res, lc = S5_ARGS["s5_union_stats"]
+    lo, hi, hp, ldir, ldist = s5_segments(gsc, res, lc, cpu)
+    _, _, c_hp, c_ldir, _ = s5_segments(gsc, res, lc, dev)
+    on_card = s5_union_stats.union_stats(
+        lo.to(dev), hi.to(dev), hp.to(dev), ldir.map(lambda a: a.to(dev)),
+        ldist.to(dev))
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(
+        on_card, s5_union_stats.union_stats(lo, hi, hp, ldir, ldist))),
+          "s5_union_stats slab test on the same segments: card == CPU")
+    d_hp = (c_hp.cpu() - hp).abs().max().item()
+    d_dir = max((getattr(c_ldir, c).cpu() - getattr(ldir, c)).abs().max()
+                .item() for c in "xyz")
+    phase(38, f"s5_union_stats {res} {lc}: every overlap count card == "
+              f"CPU, the hit points differing by up to {d_hp:.3e} and the "
+              f"light directions by {d_dir:.3e}; the slab test on the "
+              f"CPU's segments bit-equal on the card")
+    phase(38, f"scene5 diagnostics {S5_ARGS} on the glass stand-in "
+              f"({gsc.static.n_triangles} triangles) as subprocesses on the "
+              f"card, collected {wall:.1f} s after they started (beside "
+              f"phases 36-37), every JAX line there and finite; "
+              f"s5_diag {S5_ARGS['s5_diag']} counts card == CPU; launches "
+              f"{launches}")
+    for tool in S5_ARGS:
+        for line in lines[tool]:
+            phase(38, f"{tool}: {line}")
+    return dict(launches=launches, lines=lines)
 
 
 def main() -> int:
@@ -2255,23 +2493,28 @@ def main() -> int:
                 lambda: rng.philox_uniform(key, shp, device=dev))))
     # kernel 2: the first chunk of the first and of the second round
     chunk2 = [x.to(dev) if torch.is_tensor(x) else x for x in chunk2]
+    op_weights = probe_op_weights(dev)
+    phase(10, f"f32 operations of peak a sqrtf (data sheet), sinf, powf "
+              f"and division (roofline chains): {op_weights}; data sheet "
+              f"{DATASHEET_OP_WEIGHTS}")
     for what, (cu, cpx, csf, cnv, ckw) in (
             ("round 1", (u, px, scal_f, n_valid, kw0)), ("round 2", chunk2)):
         P = cpx.shape[1]
         live = int((cpx[16] > 0).sum())
         samples = live * min(ckw["lc"], cnv)
-        ops = samples * (FUSED_OPS_PER_SAMPLE
-                         + FUSED_OPS_PER_SPHERE * (ckw["ns"] - 1)
-                         + FUSED_OPS_PER_PLANE * ckw["npl"])
-        need = 4 * (2 * samples + P + 16 * live + csf.numel() + 3 * P)
+        fb = fused_bound(samples, P, live, csf.numel(), ckw["ns"],
+                         ckw["npl"], op_weights)
 
         def run(cu=cu, cpx=cpx, csf=csf, cnv=cnv, ckw=ckw):
             return fused_shadow.fused_chunk(cu, cpx, csf, cnv, **ckw)
 
+        dev_runs = [device_ms(run), device_ms(run)]
         times["fused_shadow_chunk"].append(time_line(
             f"fused chunk {what} lc={ckw['lc']} P={P} ({live} live pixels, "
-            f"{samples} live samples)", [device_ms(run), device_ms(run)],
-            bound_ms(need, ops), issue_ms=issue_ms(run)))
+            f"{samples} live samples)", dev_runs, fb["bound"],
+            issue_ms=issue_ms(run), ops_count="probe-weighted",
+            datasheet_bound_ms=fb["datasheet_bound_ms"],
+            datasheet_share=fb["datasheet_bound_ms"] / mean(dev_runs)))
     # kernel 2's backward: _FusedChunk.backward (the plain version's
     # autograd at the same operands, on the card) on the round-1 chunk
     pxg = px.clone().requires_grad_(True)
@@ -2398,7 +2641,7 @@ def main() -> int:
             # calls do not depend on the count) for its launches a frame
             pallas_visit.visit_order.launches = 0
             make_renderer(with_lights(gsc, 20), RenderConfig(bvh_visits=v),
-                          GLASS_RES, GLASS_RES, device=dev)(
+                          GLASS_LAUNCH_RES, GLASS_LAUNCH_RES, device=dev)(
                 gsc.params, rng.PhiloxSampler(args.seed, dev))
             torch.cuda.synchronize()
             n_launch = pallas_visit.visit_order.launches
@@ -2527,7 +2770,7 @@ def main() -> int:
               f"every leaf finite and within tolerance; worst leaf "
               f"{worst_g}")
 
-    gi = gi_phases(sc, gsc, dev, args.seed, gen, n_sm)
+    gi = gi_phases(sc, gsc, dev, args.seed, gen, n_sm, op_weights)
 
     # -- phases 24-28: kernel 3 above 256, the CLIs, progressive renders,
     # the spill report and auto-tune, postprocessing ---------------------
@@ -2560,8 +2803,13 @@ def main() -> int:
     # -- phases 35-37: the tools: roofline probes, flagship, scaling ------
     torch.cuda.empty_cache()
     roofline_phase(dev, args.seed)
-    flagship_tool_phase(gsc, dev, args.seed)
-    scaling_phase(dev)
+    # phase 37 and phase 38's runs go beside phase 36's flagship tool, to
+    # keep the run within its time
+    fl = flagship_tool_phase(gsc, dev, args.seed, beside=lambda: (
+        s5_runs(gsc, dev), scaling_phase(dev))[0])
+
+    # -- phase 38: the scene5 diagnostics ---------------------------------
+    s5 = s5_tools_phase(gsc, dev, fl["beside"])
     # each main path's launches, its counts set to 0 just before it ran
     by_path = {"dense_1024_3_frames": launches,
                f"mesh_512_{MESH_FRAMES}_frames": mlaunches,
@@ -2571,7 +2819,11 @@ def main() -> int:
                    list(sup["launches_by_path"].items())
                    + list(comp["launches_by_path"].items()))},
                f"mesh_{OPT_RES}_4_ranges_1_frame": {
-                   k: n for k, n in shp["launches"].items() if n}}
+                   k: n for k, n in shp["launches"].items() if n},
+               **{f"glass_{tool}_{'_'.join(map(str, S5_ARGS[tool]))}": {
+                   k: n for k, n in s5["launches"][
+                       tool + " (this process)"].items() if n}
+                  for tool in ("s5_diag", "s5_union_stats")}}
 
     def path_launches(name):
         return {path: n[name] for path, n in by_path.items() if name in n}
@@ -2601,7 +2853,8 @@ def main() -> int:
                  "c_raytracer_tpu_torch/csrc/fused_shadow.cu",
                  "c_raytracer_tpu/render/fused_shadow.py:195",
                  fused_err, fu_issue, None),
-             backward_ms=mean(bwd_runs), backward_runs=bwd_runs),
+             backward_ms=mean(bwd_runs), backward_runs=bwd_runs,
+             ops_count="probe-weighted", op_weights=op_weights),
         row("visit_order", "c_raytracer_tpu_torch/csrc/visit_order.cu",
             "c_raytracer_tpu/accel/pallas_visit.py:98", vo_err, vo_issue,
             None),
@@ -2618,7 +2871,8 @@ def main() -> int:
         "launches_per_frame": r["launches_per_frame"], "split": r["split"],
         "path": (f"glass stand-in 64x64, RenderConfig(), {GLASS_FRAMES} "
                  f"frames" if v == 64
-                 else f"glass 64x64 at bvh_visits={v}, one frame")}
+                 else f"glass {GLASS_LAUNCH_RES}x{GLASS_LAUNCH_RES} at "
+                      f"bvh_visits={v}, one frame")}
         for v, r in glass_rec.items()] + [{
         "name": "visit_order[V=512]", "route": "cuda",
         "source": "c_raytracer_tpu_torch/csrc/visit_order.cu",
@@ -2630,8 +2884,9 @@ def main() -> int:
         "library_ms": None, "launches_per_frame": big["launches_per_frame"],
         "split": big["split"], "passes": 2,
         "mesh_device_ms": big["mesh_device_ms"], "by_v": big["by_v"],
-        "path": "glass 64x64 at bvh_visits=512 (20 lights), one frame, two "
-                "launches a call"}] + [{
+        "path": f"glass {GLASS_LAUNCH_RES}x{GLASS_LAUNCH_RES} at "
+                f"bvh_visits=512 (20 lights), one frame, two launches a "
+                f"call"}] + [{
         "name": f"visit_order[super S={S}]", "route": "cuda",
         "source": "c_raytracer_tpu_torch/csrc/visit_order.cu",
         "replaces": "c_raytracer_tpu/accel/pallas_visit.py:98",

@@ -45,7 +45,10 @@ def test_package_has_the_slice_modules():
                 "parallel/mesh.py", "parallel/launch.py",
                 "parallel/render_sharded.py", "parallel/train.py",
                 "entry.py", "tools/flagship_s5.py",
-                "tools/bench_scaling.py", "tools/roofline.py"):
+                "tools/bench_scaling.py", "tools/roofline.py",
+                "tools/s5_common.py", "tools/s5_union_bench.py",
+                "tools/s5_union_stats.py", "tools/s5_trunc_sweep.py",
+                "tools/s5_diag.py"):
         assert mod in rel, mod
 
 
