@@ -1,0 +1,11 @@
+"""host_syncs.step: the program's host reads of device values (its
+``sync.<site>`` counters, ``c_raytracer_tpu_torch/core/tracing.py``) over
+the traced steps, the backward's recomputes included, a step."""
+
+from benchmark import program_spans
+
+
+def read(ctx):
+    if ctx["iteration"] != "step":
+        return None
+    return program_spans.counted(ctx, lambda k: k.startswith("sync."))

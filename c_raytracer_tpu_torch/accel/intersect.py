@@ -25,6 +25,11 @@ across shards, stacked in this process or gathered across the ``pr``
 ranks.  Unlike the JAX package's sharded sweeps, each shard's sweep takes
 the same opt-ins as the unsharded one (``closest_compact``,
 ``bvh_super_group``, ``sweep_dead_skip``).
+
+Spans (core/tracing.py): ``crt.intersect.closest``, ``.retest`` and
+``.shadow`` (``any_counts``, ``shadow_query``) around each query, and
+``crt.intersect.union_block`` around each block of the union sweep, which
+counts ``union_blocks`` and, in traverse.py, ``union_steps``.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import dataclasses
 import torch
 
 from c_raytracer_tpu_torch.accel import traverse
+from c_raytracer_tpu_torch.core import tracing
 from c_raytracer_tpu_torch.core import v3 as v3m
 from c_raytracer_tpu_torch.core.v3 import V3
 from c_raytracer_tpu_torch.geometry import primitives as G
@@ -108,6 +114,7 @@ class Intersector:
     def has_clusters(self) -> bool:
         return self.clusters is not None
 
+    @tracing.spanned("intersect.closest")
     def closest(self, o: V3, d: V3, with_spill: bool = False):
         """(t, gid, mat, normal V3) over the whole scene; o/d V3 of (P,).
 
@@ -184,6 +191,7 @@ class Intersector:
                                     found)
         return out + (spill,) if with_spill else out
 
+    @tracing.spanned("intersect.retest")
     def retest(self, o: V3, d: V3, gid):
         """Single-primitive inside-object re-test (render.c:143-144) of
         primitive ``gid`` (P,), -1 for none.  Returns (t, hit, normal).
@@ -200,6 +208,7 @@ class Intersector:
         return G.tint_from_counts(self.ds.materials.kt,
                                   G.tint_slots(self.static), counts)
 
+    @tracing.spanned("intersect.shadow")
     def any_counts(self, o: V3, d: V3, max_dist, exclude_gid,
                    with_spill: bool = False):
         """(blocked, counts) shadow query; o and d broadcast against each
@@ -234,6 +243,7 @@ class Intersector:
         cs = self.clusters
         o2 = v3m.to_aos(o).expand(lead + (3,)).reshape(-1, 3)
         d2 = v3m.to_aos(d).expand(lead + (3,)).reshape(-1, 3)
+        _count_copy(exclude_gid)
         ex = torch.as_tensor(exclude_gid, device=dev).expand(lead).reshape(-1)
         args = [o2, d2, max_dist.expand(lead).reshape(-1), ex,
                 blocked.expand(lead).reshape(-1)]
@@ -268,6 +278,7 @@ class Intersector:
         n_slots = len(G.tint_slots(self.static)) if has_transp else 0
         o2 = v3m.to_aos(o).expand(lead + (3,)).reshape(-1, 3)
         d2 = v3m.to_aos(d).expand(lead + (3,)).reshape(-1, 3)
+        _count_copy(exclude_gid)
         ex = torch.as_tensor(exclude_gid, device=dev).expand(lead).reshape(-1)
 
         def sweep(o2, d2, md, ex):
@@ -363,6 +374,12 @@ class Intersector:
             return tuple(a[sl] for a in acc) if isinstance(acc, tuple) \
                 else acc[sl]
 
+        def block(*args, dead_skip):
+            with tracing.span("intersect.union_block"):
+                tracing.count("union_blocks")
+                return traverse.any_hit_tint_shared(
+                    scs, *args, dead_skip=dead_skip, steps="union_steps")
+
         if self.cfg.union_scope == "chunk" and nc > 1:
             parts, spill_max = [], torch.zeros((), dtype=torch.int32,
                                                device=origin_aos.device)
@@ -370,8 +387,8 @@ class Intersector:
                 one = dirs_of([dirs[ci]])
                 cids, ok, spill = traverse.shadow_union_visit_order(
                     scs, origin_aos, one, 1, uv, live)
-                parts.append(traverse.any_hit_tint_shared(
-                    scs, origin_aos, cids, ok, one, 1,
+                parts.append(block(
+                    origin_aos, cids, ok, one, 1,
                     sub(acc, (slice(None), slice(ci, ci + 1))),
                     dead_skip=self._dead_skip))
                 spill_max = torch.maximum(spill_max, spill.max())
@@ -388,23 +405,23 @@ class Intersector:
                 else acc.reshape(P, 1, nc * lc))
         pb = self._union_compact_block(P)
         if not pb:
-            out = traverse.any_hit_tint_shared(
-                scs, origin_aos, cids, ok, dirs_of(flat), 1, acc1,
-                dead_skip=self._dead_skip)
+            out = block(origin_aos, cids, ok, dirs_of(flat), 1, acc1,
+                        dead_skip=self._dead_skip)
         else:
             order = torch.argsort(ok.sum(1), stable=True)
             parts = []
             for b0 in range(0, P, pb):
                 pix = order[b0:b0 + pb]
-                parts.append(traverse.any_hit_tint_shared(
-                    scs, origin_aos[pix], cids[pix], ok[pix],
-                    dirs_of(flat, pix), 1, sub(acc1, pix), dead_skip=True))
+                parts.append(block(origin_aos[pix], cids[pix], ok[pix],
+                                   dirs_of(flat, pix), 1, sub(acc1, pix),
+                                   dead_skip=True))
             inv = torch.argsort(order)
             out = sub(_cat(parts, 0), inv)
         out = (tuple(a.reshape((P, nc, lc) + a.shape[3:]) for a in out)
                if isinstance(out, tuple) else out.reshape(P, nc, lc))
         return out, spill.max()
 
+    @tracing.spanned("intersect.shadow")
     def shadow_query(self, origin: V3, emitter_lo, emitter_hi, dirs_fn, egid,
                      nchunks, lc, live=None):
         """Shared-origin soft-shadow query over all sample chunks at once
@@ -541,6 +558,12 @@ class Intersector:
         outs = [fn(*(a[i:i + chunk] for a in args))
                 for i in range(0, n, chunk)]
         return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _count_copy(exclude_gid) -> None:
+    """Count the copy of a host ``exclude_gid`` to the device."""
+    if not isinstance(exclude_gid, torch.Tensor):
+        tracing.count("sync.exclude_gid")
 
 
 def _cat(parts, dim):

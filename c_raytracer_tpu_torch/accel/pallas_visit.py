@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from c_raytracer_tpu_torch import _native
+from c_raytracer_tpu_torch.core import tracing
 
 FLT_MAX = float(np.finfo(np.float32).max)
 LIST_SIZES = (8, 16, 32, 64, 128, 256)  # the kernel's compiled list sizes
@@ -176,8 +177,5 @@ def visit_order(o, d, lo, hi, V: int, count_max_dist=None):
                 cids.data_ptr(), entry.data_ptr(), spill.data_ptr(), R, K, V,
                 col0, v, split.cluster, split.warps, split.slice, stream)
             _native.check(err, "visit_order")
-            visit_order.launches += 1
+            tracing.count("kernel.visit_order")
     return cids, entry, spill
-
-
-visit_order.launches = 0

@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from c_raytracer_tpu_torch.accel import pallas_visit
+from c_raytracer_tpu_torch.core import tracing
 from c_raytracer_tpu_torch.core import v3 as v3m
 from c_raytracer_tpu_torch.geometry.primitives import slot_counts, tint_slots
 
@@ -176,6 +177,7 @@ def pack_clusters(ds, static, cluster_size: int) -> ClusterSet:
     kt = transp = slot = None
     slots = tint_slots(static)
     if transp_np.any():
+        tracing.count("sync.pack_clusters", 3)   # the copies from the host
         mat = torch.as_tensor(mat_np, device=dev)
         kt = ds.materials.kt[mat]                            # (nt, 3)
         transp = torch.as_tensor(transp_np, device=dev)
@@ -218,6 +220,8 @@ def pack_clusters_sharded(sh, static, cluster_size: int) -> tuple:
         valid = sh.gid[k, :n] >= 0
         kt = transp = slot = None
         if sh.kt is not None:
+            # two reads of the shard's tables and a copy back
+            tracing.count("sync.pack_clusters", 3)
             kt, transp = sh.kt[k, :n], sh.transp[k, :n]
             mat_np = sh.mat[k, :n].cpu().numpy()
             tr_np = transp.cpu().numpy()
@@ -340,9 +344,11 @@ def _visit_order_super(cs: ClusterSet, o, d, visits: int, G: int, S: int,
 
 def _visit_limit(ok, dead_skip: bool) -> int:
     """Visit slots to run: all of them, or with ``dead_skip`` the batch's
-    longest live list (lists are front-packed; one host read per sweep)."""
+    longest live list (lists are front-packed; one host read per sweep,
+    counted as ``sync.visit_limit``)."""
     if not dead_skip or ok.shape[0] == 0:
         return ok.shape[1]
+    tracing.count("sync.visit_limit")
     return int(ok.sum(1).max())
 
 
@@ -842,16 +848,20 @@ def _stack_chunks(chunks):
 
 
 def any_hit_tint_shared(cs: ClusterSet, origin, cids, ok, dirs_fn, nchunks,
-                        acc, *, dead_skip: bool = False):
+                        acc, *, dead_skip: bool = False, steps=None):
     """Shared-origin soft-shadow sweep, visits outer and sample chunks
     inner: each visited block is gathered once per pixel and every sample
     chunk streams through it (the ``bvh_shadow_shortlist=0`` route).
     Arguments and accumulators as in any_hit_tint_shortlist, with
-    cids/ok (P, V) from shadow_visit_order."""
+    cids/ok (P, V) from shadow_visit_order.  ``steps``: the counter
+    (core/tracing.py) that the visit steps run add to, or None."""
     C = cs.blk.shape[2]
     lanes = torch.arange(C, device=origin.device)
     chunks = [_chunk_of(acc, chunk_i) for chunk_i in range(nchunks)]
-    for v in range(_visit_limit(ok, dead_skip)):
+    n_steps = _visit_limit(ok, dead_skip)
+    if steps:
+        tracing.count(steps, n_steps)
+    for v in range(n_steps):
         cid = cids[:, v]
         live = ok[:, v]
         blk = cs.blk[cid]                                  # (P, F, C)

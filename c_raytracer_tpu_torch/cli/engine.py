@@ -51,7 +51,7 @@ OPTIONAL PARAMETERS:
 [--chunks] (integer)             : DEFAULT = 1       : progressive sample chunks (checkpointed with --checkpoint).
 [--checkpoint] (string)          : DEFAULT = OFF     : raw-TIFF render checkpoint; resumes if present.
 [--profile] (string)             : DEFAULT = OFF     : write a torch.profiler Chrome trace to this directory.
-[--stats]                        : DEFAULT = OFF     : print traced-ray counts, rays/second and kernel launches.
+[--stats]                        : DEFAULT = OFF     : print traced-ray counts, rays/second, kernel launches and the host counters.
 [--accel-report]                 : DEFAULT = OFF     : print the acceleration spill report (accel/validate.py).
 [--accel-tune]                   : DEFAULT = OFF     : auto-raise visit budgets until the measured spill is zero.
 [--shadow-mode] (string)         : DEFAULT = auto    : soft-shadow sweep (auto | shared | per_ray | union).
@@ -176,6 +176,12 @@ def main(argv=None) -> int:
         prof.start()
 
     printf_log("Commencing raytracing.")
+    show_stats = _flag(argv, "--stats", nargs=0)
+    if show_stats:
+        # the program's counters (core/tracing.py), for the frame only
+        from c_raytracer_tpu_torch.core import tracing
+        tracing.reset()
+        tracing.enable()
     chunks = _flag(argv, "--chunks")
     ckpt = _flag(argv, "--checkpoint")
 
@@ -215,7 +221,8 @@ def main(argv=None) -> int:
                            with_stats=True)
         img, z, stats = fn(scene.params, sampler)
         img, z = img.cpu().numpy(), z.cpu().numpy()   # waits for the frame
-        if _flag(argv, "--stats", nargs=0):
+        if show_stats:
+            tracing.disable()
             dt = time.perf_counter() - t_render
             stats = {k: float(x) for k, x in stats.items()}
             total = stats["main_rays"] + stats["shadow_rays"] \
@@ -227,13 +234,15 @@ def main(argv=None) -> int:
                 stats["gi_rays"], stats["dropped"], dt, total / dt)
             if warn_spill(stats):
                 printf_log("Shadow sweep exhaustive (spill 0).")
-            from c_raytracer_tpu_torch.accel.pallas_visit import visit_order
-            from c_raytracer_tpu_torch.core.rng import philox_uniform
-            from c_raytracer_tpu_torch.render.fused_shadow import fused_chunk
+            counts = tracing.totals()
             printf_log("Kernel launches: philox_uniform %d, "
                        "fused_shadow_chunk %d, visit_order %d.",
-                       philox_uniform.launches, fused_chunk.launches,
-                       visit_order.launches)
+                       counts.get("kernel.philox_uniform", 0),
+                       counts.get("kernel.fused_shadow", 0),
+                       counts.get("kernel.visit_order", 0))
+            printf_log("Host counters: %s.", ", ".join(
+                f"{k} {v}" for k, v in sorted(counts.items())
+                if not k.startswith("kernel.")))
         else:
             warn_spill(stats)
 

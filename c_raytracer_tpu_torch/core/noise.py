@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from c_raytracer_tpu_torch.core import tracing
+
 # Ken Perlin's canonical permutation table (public domain).
 _PERM = np.array([
     151, 160, 137, 91, 90, 15,
@@ -48,6 +50,7 @@ def _grad(h, x, y, z):
 
 def simplex_noise(x, y, z):
     """Batched 3D simplex noise in [-1, 1]; 0 at all integer coordinates."""
+    tracing.count("sync.noise_perm")   # the table copied from the host
     perm = torch.as_tensor(_PERM, device=x.device)
 
     def hash_(i):

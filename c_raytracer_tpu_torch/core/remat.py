@@ -64,6 +64,8 @@ from torch.utils._python_dispatch import _disable_current_modes
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
+from c_raytracer_tpu_torch.core import tracing
+
 OCCLUSION = "occlusion"
 SHADOW_SAMPLES = "shadow_samples"
 SHADE_TERMS = "shade_terms"
@@ -97,13 +99,20 @@ def checkpoint(cfg, fn, *args):
     """``fn(*args)``, recomputed in the backward instead of keeping its
     residuals when ``cfg.remat`` is on and autograd is recording, keeping
     the values named by ``cfg.remat_names``.  The tensors inside ``args``
-    reach the checkpoint as positional arguments."""
+    reach the checkpoint as positional arguments.  A recompute runs in the
+    span ``crt.remat.recompute`` (core/tracing.py)."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn(*args)
     flat, spec = pytree.tree_flatten(args)
 
     def region(*flat_args):
-        return fn(*pytree.tree_unflatten(list(flat_args), spec))
+        args = pytree.tree_unflatten(list(flat_args), spec)
+        # run again while autograd runs a backward: the recompute
+        if (tracing.enabled()
+                and torch._C._current_autograd_node() is not None):
+            with tracing.span("remat.recompute"):
+                return fn(*args)
+        return fn(*args)
     saved = frozenset(cfg.remat_names) & {SHADOW_SAMPLES, SHADE_TERMS}
     extra = {"context_fn": _context_fn(saved)} if saved else {}
     return torch.utils.checkpoint.checkpoint(

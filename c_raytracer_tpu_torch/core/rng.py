@@ -30,6 +30,7 @@ from typing import Any
 import torch
 
 from c_raytracer_tpu_torch import _native
+from c_raytracer_tpu_torch.core import tracing
 
 _M32 = 0xFFFFFFFF
 _M64 = 0xFFFFFFFFFFFFFFFF
@@ -93,11 +94,8 @@ def philox_uniform(key, shape, *, device) -> torch.Tensor:
         err = _native.lib().crt_philox_uniform(out.data_ptr(), out.numel(),
                                                k0, k1, stream)
     _native.check(err, "philox_uniform")
-    philox_uniform.launches += 1
+    tracing.count("kernel.philox_uniform")
     return out
-
-
-philox_uniform.launches = 0
 
 
 def _splitmix64(x: int) -> int:

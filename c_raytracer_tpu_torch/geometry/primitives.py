@@ -34,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from c_raytracer_tpu_torch.core import tracing
 from c_raytracer_tpu_torch.core import v3 as v3m
 from c_raytracer_tpu_torch.core.v3 import V3
 from c_raytracer_tpu_torch.scene import types as T
@@ -85,6 +86,8 @@ def device_scene(params: T.SceneParams, static: T.SceneStatic) -> DeviceScene:
     render device (scene.convert.params_to_torch)."""
     dev = params.sphere_center.device
     ns, nt = static.n_spheres, static.n_triangles
+    # four tables copied from the host: blocking copies on the card
+    tracing.count("sync.device_scene", 4)
     eps = torch.as_tensor(np.asarray(static.epsilon, np.float32), device=dev)
     v = params.tri_vertices.reshape(nt, 3, 3)
     e1 = v[:, 1] - v[:, 0]
@@ -321,6 +324,9 @@ def any_hit_counts_soa(ds: DeviceScene, static, o: V3, d: V3, max_dist,
         transp_all = transp_tab[mat_c] & valid                  # (nchunks, C)
         any_transp = bool(np.asarray(static.is_transparent, bool)[
             np.asarray(static.material_index[ns:ns + nt], np.int64)].any())
+        # the tables below and ``exclude_gid`` copied from the host
+        tracing.count("sync.any_hit_tables", 1 + any_transp + (
+            not isinstance(exclude_gid, torch.Tensor)))
         if any_transp:
             slot_all = torch.as_tensor(                         # (nchunks, C)
                 [slots.index(m) if tr else -1

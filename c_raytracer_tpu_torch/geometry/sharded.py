@@ -42,7 +42,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from c_raytracer_tpu_torch.core import comm
+from c_raytracer_tpu_torch.core import comm, tracing
 from c_raytracer_tpu_torch.core import v3 as v3m
 from c_raytracer_tpu_torch.core.v3 import V3
 from c_raytracer_tpu_torch.geometry import primitives as G
@@ -145,6 +145,8 @@ def shard_triangles(ds: G.DeviceScene, static, n_shards: int, *,
         a = pdev(x, 0.0)
         return V3(a[..., 0], a[..., 1], a[..., 2])
 
+    # the tables copied from the host
+    tracing.count("sync.shard_triangles", 3 + 2 * any_transp)
     kt = transp = None
     if any_transp:
         kt = ds.materials.kt[torch.as_tensor(mat_np, device=dev)]
@@ -277,6 +279,9 @@ def any_hit_counts_sharded(ds: G.DeviceScene, static, sh: TriShards, o: V3,
     shape = blocked.shape
     dev = blocked.device
     slots = G.tint_slots(static)
+    # the slot table and ``exclude_gid`` copied from the host
+    tracing.count("sync.any_hit_tables", 1 + (
+        not isinstance(exclude_gid, torch.Tensor)))
     slot_of = torch.as_tensor([slots.index(m) if tr else -1 for m, tr in
                                enumerate(static.is_transparent)],
                               device=dev)

@@ -10,6 +10,9 @@ package's draws this way).  ``make_host_tiled_renderer`` and
 host loop, the second with one autograd graph a batch, so that a
 gradient step's memory is bounded by one batch; ``render`` is the
 one-call convenience.
+
+Each entry call is a span ``crt.frame`` and each tile a span ``crt.tile``
+(core/tracing.py).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from c_raytracer_tpu_torch.accel.intersect import (AUTO_THRESHOLD,
                                                    make_intersector)
-from c_raytracer_tpu_torch.core import remat, rng
+from c_raytracer_tpu_torch.core import remat, rng, tracing
 from c_raytracer_tpu_torch.geometry import primitives as G
 from c_raytracer_tpu_torch.geometry import sharded
 from c_raytracer_tpu_torch.render.camera import primary_rays
@@ -89,11 +92,13 @@ class _Frame:
         path ``(i, round, ...)``.  Returns (color (n, 3), z (n,)[, stats])
         of their pixels, padding included."""
         t = self.tile
-        outs = [render_wavefront(ix, self.static, self.cfg,
-                                 rng.SampleKey(sampler, (i,)),
-                                 o[i * t:(i + 1) * t], d[i * t:(i + 1) * t],
-                                 with_stats=with_stats)
-                for i in range(first, end)]
+        outs = []
+        for i in range(first, end):
+            with tracing.span("tile", index=i):
+                outs.append(render_wavefront(
+                    ix, self.static, self.cfg, rng.SampleKey(sampler, (i,)),
+                    o[i * t:(i + 1) * t], d[i * t:(i + 1) * t],
+                    with_stats=with_stats))
         color = torch.cat([out[0] for out in outs])
         z = torch.cat([out[1] for out in outs])
         if not with_stats:
@@ -157,6 +162,7 @@ def make_renderer(static: T.SceneStatic, cfg: RenderConfig, resx: int,
     frame = _Frame(static, cfg, resx, resy, device,
                    stacked_shards(static, cfg, shards))
 
+    @tracing.spanned("frame")
     def render_fn(params, sampler):
         params = params_to_torch(params, frame.device)
         grad = torch.is_grad_enabled() and _requires_grad(params)
@@ -183,6 +189,7 @@ def make_host_tiled_renderer(static: T.SceneStatic, cfg: RenderConfig,
     frame = _Frame(static, cfg, resx, resy, device)
 
     @torch.no_grad()
+    @tracing.spanned("frame")
     def render_fn(params, sampler):
         params = params_to_torch(params, frame.device)
         ix, o, d = frame.setup(params, False)
@@ -221,6 +228,7 @@ def make_host_tiled_value_and_grad(static: T.SceneStatic,
     its backward's up to float summation order."""
     frame = _Frame(static, cfg, resx, resy, device)
 
+    @tracing.spanned("frame")
     def fn(params, sampler, target=None):
         leaves = map_leaves(params_to_torch(params, frame.device),
                             lambda x: x.detach().requires_grad_(True))
@@ -240,6 +248,7 @@ def make_host_tiled_value_and_grad(static: T.SceneStatic,
                     color, z, None if target is None else target[rows])
                 loss_b = torch.where(valid[rows], per_pixel, 0.0).sum()
             loss_b.backward()
+            tracing.count("sync.batch_loss")
             loss += float(loss_b.detach())
         return loss, map_leaves(leaves, lambda x: (
             x.grad if x.grad is not None else torch.zeros_like(x)))

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from c_raytracer_tpu_torch import _native
-from c_raytracer_tpu_torch.core import cmath
+from c_raytracer_tpu_torch.core import cmath, tracing
 from c_raytracer_tpu_torch.core import v3 as v3m
 from c_raytracer_tpu_torch.core.v3 import V3
 from c_raytracer_tpu_torch.geometry import primitives as G
@@ -136,7 +136,7 @@ def _launch(u, px, scal_f, n_valid: int, *, lc, ns, npl, egid, phong,
             P, lc, int(n_valid), ns, npl, egid, int(bool(phong)),
             ATTEN_KINDS[atten_kind], scal_f.numel(), stream)
     _native.check(err, "fused_chunk")
-    fused_chunk.launches += 1
+    tracing.count("kernel.fused_shadow")
     return out
 
 
@@ -176,6 +176,3 @@ def fused_chunk(u, px, scal_f, n_valid: int, *, lc, ns, npl, egid, phong,
     if u.device.type != "cuda":
         raise ValueError(f"fused_chunk: unsupported device {u.device}")
     return _FusedChunk.apply(u, px, scal_f, n_valid, statics)
-
-
-fused_chunk.launches = 0

@@ -14,7 +14,11 @@ reference's recursive cast_ray tree (render.c:136-343) in rounds.
 
 The JAX package's ``lax.scan`` over rounds is a Python loop here, and its
 dead-round ``lax.cond`` is a ``break`` once no pixel has a ray: one host
-sync per round (a CUDA graph of the round body would remove it).
+sync per round (a CUDA graph of the round body would remove it).  Each
+round is a span ``crt.round`` and counts that sync (``sync.round_any``)
+and, if it runs, ``rounds``; each GI sample is a span ``crt.gi.sample``
+(core/tracing.py).  The ray statistics are computed only for a caller
+that asks for them (``with_stats``).
 
 The intersector (and the cluster packs of a mesh scene) depends only on
 the scene parameters, so ``make_renderer`` builds it once per frame and
@@ -42,7 +46,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from c_raytracer_tpu_torch.core import remat
+from c_raytracer_tpu_torch.core import remat, tracing
 from c_raytracer_tpu_torch.core import v3 as v3m
 from c_raytracer_tpu_torch.core.v3 import V3
 from c_raytracer_tpu_torch.render import shading
@@ -80,19 +84,22 @@ def _gi_sample(ix, static, cfg, skey, hit_pt: V3, normal: V3, eps,
     child's own segment attenuation, zero where ``lane_ok`` is False or
     the child misses.  Returns (colour V3 (P,), shadow spill, the lanes'
     visit spill)."""
-    sdir, cos = shading.sample_hemisphere(skey.fold_in(0), normal, eps)
-    if torch.is_grad_enabled():
-        # a lane that takes no sample traces the padding's zero ray, as a
-        # dead chain does: its drifting child would meet 0·inf in the
-        # backward
-        hit_pt, sdir = (v3m.where(lane_ok, v, 0.0) for v in (hit_pt, sdir))
-    ct, cgid, cmat, cn, csp = _trace(ix, hit_pt, sdir)
-    child, caux = shading.shade_basic(ix, static, cfg, skey.fold_in(1),
-                                      hit_pt, sdir, ct, cgid, cmat, cn,
-                                      lane_ok)
-    child = shading.attenuate_segment(cfg, child * (delta * cos), ct)
-    child = v3m.where(lane_ok & (cgid >= 0), child, 0.0)
-    return child, caux["shadow_spill"], torch.where(lane_ok, csp, 0).max()
+    with tracing.span("gi.sample"):
+        sdir, cos = shading.sample_hemisphere(skey.fold_in(0), normal, eps)
+        if torch.is_grad_enabled():
+            # a lane that takes no sample traces the padding's zero ray, as
+            # a dead chain does: its drifting child would meet 0·inf in the
+            # backward
+            hit_pt, sdir = (v3m.where(lane_ok, v, 0.0)
+                            for v in (hit_pt, sdir))
+        ct, cgid, cmat, cn, csp = _trace(ix, hit_pt, sdir)
+        child, caux = shading.shade_basic(ix, static, cfg, skey.fold_in(1),
+                                          hit_pt, sdir, ct, cgid, cmat, cn,
+                                          lane_ok)
+        child = shading.attenuate_segment(cfg, child * (delta * cos), ct)
+        child = v3m.where(lane_ok & (cgid >= 0), child, 0.0)
+        return (child, caux["shadow_spill"],
+                torch.where(lane_ok, csp, 0).max())
 
 
 def _may_skip(ix) -> bool:
@@ -135,7 +142,9 @@ def _gi_path(ix, static, cfg, key, hit_pt: V3, normal: V3, gid, is_outside,
         # secondaries (one sample, i == 0) belong to the offset-0 chunk
         only_primary = i > 0 or off != 0
         if only_primary and may_skip and not primary_round:
+            tracing.count("gi.samples_skipped")
             continue
+        tracing.count("gi.samples_run")
         lane_ok = gi_active & (is_primary if only_primary else True)
         child, c_ss, c_vs = remat.checkpoint(
             cfg, _gi_sample, ix, static, cfg,
@@ -231,44 +240,52 @@ def _render_chain(ix, static: T.SceneStatic, cfg: RenderConfig, key, o: V3,
     live = torch.ones(P, dtype=torch.bool, device=dev)
     # counts in float64: exact for any frame size (the JAX package's f32
     # counters round above 2^24)
-    stats = torch.zeros(len(STAT_KEYS), dtype=torch.float64, device=dev)
+    stats = (torch.zeros(len(STAT_KEYS), dtype=torch.float64, device=dev)
+             if with_stats else None)
 
     for round_i in range(rounds):
-        if not bool(live.any()):
-            break  # every chain has died: the remaining rounds do no work
-        remaining = cfg.max_bounces - round_i  # same depth on every lane
-        is_primary = remaining == cfg.max_bounces
-        r = remat.checkpoint(cfg, _round_shade, ix, static, cfg,
-                             key.fold_in(round_i), ro, rd, rkr, remaining,
-                             live, None, is_primary)
-        color = color + r["contrib"]
-        if is_primary:
-            z = torch.where(live, r["z_val"], z)
+        with tracing.span("round", index=round_i):
+            tracing.count("sync.round_any")
+            if not bool(live.any()):
+                break  # every chain has died: the remaining rounds do no work
+            tracing.count("rounds")
+            remaining = cfg.max_bounces - round_i  # same depth on every lane
+            is_primary = remaining == cfg.max_bounces
+            r = remat.checkpoint(cfg, _round_shade, ix, static, cfg,
+                                 key.fold_in(round_i), ro, rd, rkr, remaining,
+                                 live, None, is_primary)
+            color = color + r["contrib"]
+            if is_primary:
+                z = torch.where(live, r["z_val"], z)
 
-        live2 = r["push_refl"]
-        n_hit = r["active_hit"].sum(dtype=torch.float64)
-        stats[0] += live.sum(dtype=torch.float64)
-        stats[1] += n_hit * sh_w
-        stats[2] += n_hit * (gi_p if is_primary else gi_s)
-        stats[3] += live2.sum(dtype=torch.float64)
-        # stats[4] (stack drops) stays 0: the chain has no stack
-        stats[5] = torch.maximum(stats[5],
-                                 r["shadow_spill"].to(torch.float64))
-        stats[6] = torch.maximum(stats[6], r["visit_spill"].to(torch.float64))
-        ro, rd, rkr = r["hit_pt"], r["refl_d"], r["refl_kr"]
-        if torch.is_grad_enabled():
-            # under autograd a chain that died carries the zero ray of the
-            # tile's padding from here on.  Its own ray goes on bouncing
-            # unmasked, its direction drifting off unit length round by
-            # round (0.33-1.02 after 10 rounds on the dense stand-in at
-            # 1024²); its values, masked in the forward, still meet zero
-            # cotangents in the backward, and there 0·inf made that
-            # frame's gradients NaN, as the JAX package's are.  Dead lanes
-            # add nothing to the frame or the stats either way, so a frame
-            # without gradients keeps the rays and spares the selects.
-            ro, rd, rkr = (v3m.where(live2, v, 0.0) for v in (ro, rd, rkr))
-        live = live2
-    return _finish(color, z, stats, with_stats)
+            live2 = r["push_refl"]
+            if with_stats:
+                n_hit = r["active_hit"].sum(dtype=torch.float64)
+                stats[0] += live.sum(dtype=torch.float64)
+                stats[1] += n_hit * sh_w
+                stats[2] += n_hit * (gi_p if is_primary else gi_s)
+                stats[3] += live2.sum(dtype=torch.float64)
+                # stats[4] (stack drops) stays 0: the chain has no stack
+                stats[5] = torch.maximum(stats[5],
+                                         r["shadow_spill"].to(torch.float64))
+                stats[6] = torch.maximum(stats[6],
+                                         r["visit_spill"].to(torch.float64))
+            ro, rd, rkr = r["hit_pt"], r["refl_d"], r["refl_kr"]
+            if torch.is_grad_enabled():
+                # under autograd a chain that died carries the zero ray of
+                # the tile's padding from here on.  Its own ray goes on
+                # bouncing unmasked, its direction drifting off unit length
+                # round by round (0.33-1.02 after 10 rounds on the dense
+                # stand-in at 1024²); its values, masked in the forward,
+                # still meet zero cotangents in the backward, and there
+                # 0·inf made that frame's gradients NaN, as the JAX
+                # package's are.  Dead lanes add nothing to the frame or the
+                # stats either way, so a frame without gradients keeps the
+                # rays and spares the selects.
+                ro, rd, rkr = (v3m.where(live2, v, 0.0)
+                               for v in (ro, rd, rkr))
+            live = live2
+    return _finish(color, z, stats)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -340,49 +357,56 @@ def _render_stack(ix, static: T.SceneStatic, cfg: RenderConfig, key, o: V3,
     st = _stack_init(o, d, cfg.max_bounces, cfg.stack_size)
     color = v3m.full(P, 0.0, device=dev)
     z = torch.zeros(P, dtype=torch.float32, device=dev)
-    stats = torch.zeros(len(STAT_KEYS), dtype=torch.float64, device=dev)
+    stats = (torch.zeros(len(STAT_KEYS), dtype=torch.float64, device=dev)
+             if with_stats else None)
     no_inside = torch.full(P, -1, dtype=torch.int64, device=dev)
 
     for round_i in range(cfg.resolved_rounds(True)):
-        (ro, rd, rkr, remaining, inside), active, st = _stack_pop(st)
-        if not bool(active.any()):
-            break  # every stack is empty: the remaining rounds do no work
-        # every pixel's primary ray is popped in round 0, and every pushed
-        # ray is a secondary one
-        r = remat.checkpoint(cfg, _round_shade, ix, static, cfg,
-                             key.fold_in(round_i), ro, rd, rkr, remaining,
-                             active, inside, round_i == 0)
-        color = color + r["contrib"]
-        is_primary = active & (remaining == cfg.max_bounces)
-        z = torch.where(is_primary, r["z_val"], z)
+        with tracing.span("round", index=round_i):
+            (ro, rd, rkr, remaining, inside), active, st = _stack_pop(st)
+            tracing.count("sync.round_any")
+            if not bool(active.any()):
+                break  # every stack is empty: the remaining rounds do no work
+            tracing.count("rounds")
+            # every pixel's primary ray is popped in round 0, and every
+            # pushed ray is a secondary one
+            r = remat.checkpoint(cfg, _round_shade, ix, static, cfg,
+                                 key.fold_in(round_i), ro, rd, rkr, remaining,
+                                 active, inside, round_i == 0)
+            color = color + r["contrib"]
+            is_primary = active & (remaining == cfg.max_bounces)
+            z = torch.where(is_primary, r["z_val"], z)
 
-        # refraction first, so that reflection is popped first (the
-        # reference's depth-first order)
-        pre = st.count
-        st = _stack_push(st, r["push_refr"], r["hit_pt"], r["refr_d"],
-                         r["refr_kt"], remaining - 1, r["gid"])
-        st = _stack_push(st, r["push_refl"], r["hit_pt"], r["refl_d"],
-                         r["refl_kr"], remaining - 1, no_inside)
-        n_hit = r["active_hit"].sum(dtype=torch.float64)
-        n_primary_hit = (r["active_hit"] & is_primary).sum(
-            dtype=torch.float64)
-        pushed = (st.count - pre).sum(dtype=torch.float64)
-        wanted = (r["push_refr"].sum(dtype=torch.float64)
-                  + r["push_refl"].sum(dtype=torch.float64))
-        stats[0] += active.sum(dtype=torch.float64)
-        stats[1] += n_hit * sh_w
-        stats[2] += n_hit * gi_s + n_primary_hit * (gi_p - gi_s)
-        stats[3] += pushed
-        stats[4] += wanted - pushed
-        stats[5] = torch.maximum(stats[5],
-                                 r["shadow_spill"].to(torch.float64))
-        stats[6] = torch.maximum(stats[6], r["visit_spill"].to(torch.float64))
-    return _finish(color, z, stats, with_stats)
+            # refraction first, so that reflection is popped first (the
+            # reference's depth-first order)
+            pre = st.count
+            st = _stack_push(st, r["push_refr"], r["hit_pt"], r["refr_d"],
+                             r["refr_kt"], remaining - 1, r["gid"])
+            st = _stack_push(st, r["push_refl"], r["hit_pt"], r["refl_d"],
+                             r["refl_kr"], remaining - 1, no_inside)
+            if with_stats:
+                n_hit = r["active_hit"].sum(dtype=torch.float64)
+                n_primary_hit = (r["active_hit"] & is_primary).sum(
+                    dtype=torch.float64)
+                pushed = (st.count - pre).sum(dtype=torch.float64)
+                wanted = (r["push_refr"].sum(dtype=torch.float64)
+                          + r["push_refl"].sum(dtype=torch.float64))
+                stats[0] += active.sum(dtype=torch.float64)
+                stats[1] += n_hit * sh_w
+                stats[2] += n_hit * gi_s + n_primary_hit * (gi_p - gi_s)
+                stats[3] += pushed
+                stats[4] += wanted - pushed
+                stats[5] = torch.maximum(stats[5],
+                                         r["shadow_spill"].to(torch.float64))
+                stats[6] = torch.maximum(stats[6],
+                                         r["visit_spill"].to(torch.float64))
+    return _finish(color, z, stats)
 
 
-def _finish(color: V3, z, stats, with_stats):
+def _finish(color: V3, z, stats):
+    """(color (P, 3), z) and, when ``stats`` were kept, their dict."""
     color = v3m.to_aos(color)
-    if with_stats:
+    if stats is not None:
         return color, z, dict(zip(STAT_KEYS, stats.unbind()))
     return color, z
 

@@ -32,6 +32,11 @@ the chunk loop are the named residuals ``shadow_samples`` and
 ``shade_terms``, kept too when ``cfg.remat_names`` asks for them; the fused
 route names nothing, as in the JAX package, whose draws live inside its
 kernel.
+
+Spans (core/tracing.py): ``crt.shade.emitter`` around each emitter's direct
+light, ``crt.shade.chunk`` around each light chunk (kernel 2's call, or
+the chunk loop's occlusion and shading), inside the chunk's region so that
+a recompute shows it too.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from c_raytracer_tpu_torch.core import cmath, remat
+from c_raytracer_tpu_torch.core import cmath, remat, tracing
 from c_raytracer_tpu_torch.core import v3 as v3m
 from c_raytracer_tpu_torch.core.v3 import PI, V3
 from c_raytracer_tpu_torch.render.config import (
@@ -193,6 +198,7 @@ def fused_eligible(static: T.SceneStatic, egid: int) -> bool:
             and egid < static.n_spheres)
 
 
+@tracing.spanned("shade.chunk")
 def _fused_chunk(ckey, n_valid, statics, px, scal_f):
     """One chunk of the fused route: its draw and kernel 2 -> (3, P)."""
     # imported here: fused_shadow imports this module for its plain version
@@ -238,6 +244,7 @@ def _fused_emitter(ds, static, cfg, ekey, egid, num_lights, lc, nchunks,
     return total
 
 
+@tracing.spanned("shade.chunk")
 def _shade_chunk(ix, static, cfg, ckey, egid, real, intensity: V3,
                  hit_pt: V3, nrm_b: V3, rd_b: V3, tex_col: V3, ksv: V3,
                  shin, blocked, counts, drawn):
@@ -312,52 +319,53 @@ def direct_light(ix, static: T.SceneStatic, cfg: RenderConfig, key,
         num_lights = static.num_lights[egid]
         if num_lights == 0:
             continue  # zero-sample emitter: loop never runs (render.c:176)
-        ekey = key.fold_in(e_i)
-        lc = min(cfg.light_chunk, -(-num_lights // 8) * 8)
-        nchunks = -(-num_lights // lc)
-        shaded = active & is_outside & (gid != egid)       # (P,)
-        if fused_eligible(static, egid):
-            total = total + _fused_emitter(
-                ds, static, cfg, ekey, egid, num_lights, lc, nchunks, hit_pt,
-                normal, ray_d, tex_col, ksv, shin, shaded)
-            continue
+        with tracing.span("shade.emitter", egid=egid):
+            ekey = key.fold_in(e_i)
+            lc = min(cfg.light_chunk, -(-num_lights // 8) * 8)
+            nchunks = -(-num_lights // lc)
+            shaded = active & is_outside & (gid != egid)       # (P,)
+            if fused_eligible(static, egid):
+                total = total + _fused_emitter(
+                    ds, static, cfg, ekey, egid, num_lights, lc, nchunks,
+                    hit_pt, normal, ray_d, tex_col, ksv, shin, shaded)
+                continue
 
-        e_mat = static.material_index[egid]
-        inv_nl = float(np.float32(1.0) / np.float32(num_lights))
-        intensity = v3m.splat(ds.materials.ke[e_mat] * inv_nl)
+            e_mat = static.material_index[egid]
+            inv_nl = float(np.float32(1.0) / np.float32(num_lights))
+            intensity = v3m.splat(ds.materials.ke[e_mat] * inv_nl)
 
-        blocked_all = counts_all = dirs = None
-        if ix.use_shared_shadows:
-            # shared-origin sweep: every chunk's occlusion in one pass with
-            # per-pixel visit lists; the draws, made once here, serve the
-            # sweep and the shading, and the recompute draws them again
-            dirs = [_light_dirs(ds, static, ekey.fold_in(c), egid, hit_pt,
-                                lc) for c in range(nchunks)]
+            blocked_all = counts_all = dirs = None
+            if ix.use_shared_shadows:
+                # shared-origin sweep: every chunk's occlusion in one pass with
+                # per-pixel visit lists; the draws, made once here, serve the
+                # sweep and the shading, and the recompute draws them again
+                dirs = [_light_dirs(ds, static, ekey.fold_in(c), egid, hit_pt,
+                                    lc) for c in range(nchunks)]
 
-            def sweep(_egid=egid, _dirs=dirs, _nc=nchunks, _lc=lc,
-                      _live=shaded):
-                elo, ehi = ix.emitter_bounds(_egid)
-                return ix.shadow_query(hit_pt, elo, ehi, _dirs.__getitem__,
-                                       _egid, _nc, _lc, live=_live)
-            blocked_all, counts_all, sp = remat.saved_occlusion(
-                ix.saved_occlusion, ekey.path, sweep)
-            spill_max = torch.maximum(spill_max, sp)
-
-        lane_idx = torch.arange(lc, device=dev)[:, None]
-        nrm_b = normal.map(lambda a: a[None])
-        rd_b = ray_d.map(lambda a: a[None])
-        for chunk_i in range(nchunks):
-            # the padded tail of the last chunk never contributes
-            real = shaded[None] & (chunk_i * lc + lane_idx < num_lights)
-            contrib, sp = remat.checkpoint(
-                cfg, _shade_chunk, ix, static, cfg, ekey.fold_in(chunk_i),
-                egid, real, intensity, hit_pt, nrm_b, rd_b, tex_col, ksv,
-                shin, None if dirs is None else blocked_all[chunk_i],
-                None if counts_all is None else counts_all[chunk_i],
-                None if dirs is None else dirs[chunk_i])
-            total = total + contrib
-            if sp is not None:
+                def sweep(_egid=egid, _dirs=dirs, _nc=nchunks, _lc=lc,
+                          _live=shaded):
+                    elo, ehi = ix.emitter_bounds(_egid)
+                    return ix.shadow_query(hit_pt, elo, ehi, _dirs.__getitem__,
+                                           _egid, _nc, _lc, live=_live)
+                blocked_all, counts_all, sp = remat.saved_occlusion(
+                    ix.saved_occlusion, ekey.path, sweep)
                 spill_max = torch.maximum(spill_max, sp)
+
+            lane_idx = torch.arange(lc, device=dev)[:, None]
+            nrm_b = normal.map(lambda a: a[None])
+            rd_b = ray_d.map(lambda a: a[None])
+            for chunk_i in range(nchunks):
+                # the padded tail of the last chunk never contributes
+                real = shaded[None] & (chunk_i * lc + lane_idx < num_lights)
+                contrib, sp = remat.checkpoint(
+                    cfg, _shade_chunk, ix, static, cfg, ekey.fold_in(chunk_i),
+                    egid, real, intensity, hit_pt, nrm_b, rd_b, tex_col, ksv,
+                    shin, None if dirs is None else blocked_all[chunk_i],
+                    None if counts_all is None else counts_all[chunk_i],
+                    None if dirs is None else dirs[chunk_i])
+                total = total + contrib
+                if sp is not None:
+                    spill_max = torch.maximum(spill_max, sp)
     return total, spill_max
 
 

@@ -1,7 +1,8 @@
 """What the four scene5 diagnostics (``s5_union_bench``, ``s5_union_stats``,
 ``s5_trunc_sweep``, ``s5_diag``) share: their command line's ``--scene``
-and ``--device``, the device check, the scene load, the clock and the kernels'
-launch counts that ``main`` prints on stderr when it ends.
+and ``--device``, the device check (which turns the port's counters on,
+core/tracing.py), the scene load, the clock and the kernels' launch
+counts that ``main`` prints on stderr when it ends.
 
 The JAX scripts load scene5 from a reference checkout that is not in the
 repository; the port's tools default to the in-repo stand-in
@@ -18,9 +19,8 @@ import time
 
 import torch
 
-from c_raytracer_tpu_torch.accel import pallas_visit, reorder_scene
-from c_raytracer_tpu_torch.core import rng
-from c_raytracer_tpu_torch.render import fused_shadow
+from c_raytracer_tpu_torch.accel import reorder_scene
+from c_raytracer_tpu_torch.core import tracing
 from c_raytracer_tpu_torch.scene import load_scene
 from c_raytracer_tpu_torch.tools.flagship_s5 import DEFAULT_SCENE
 
@@ -36,10 +36,12 @@ def parser(doc: str) -> argparse.ArgumentParser:
 
 def open_device(tool: str, name: str) -> torch.device:
     """The device to run on; a card that is not there is an error (there
-    is no fallback to the CPU)."""
+    is no fallback to the CPU).  Turns the port's counters on for
+    ``print_launches``."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"{tool}: no CUDA device (pass --device cpu)")
+    tracing.enable()
     return device
 
 
@@ -56,11 +58,12 @@ def clock(device) -> float:
 
 
 def print_launches() -> None:
-    """The port's kernels' launch counts in this process, one JSON line on
-    stderr (all 0 on the CPU, where each wrapper runs its plain
-    version)."""
+    """The port's kernels' launch counts since ``open_device`` (its
+    ``kernel.<name>`` counters), one JSON line on stderr (all 0 on the
+    CPU, where each wrapper runs its plain version)."""
+    counts = tracing.totals()
     print(json.dumps({"launches": {
-        "philox_uniform": rng.philox_uniform.launches,
-        "fused_shadow_chunk": fused_shadow.fused_chunk.launches,
-        "visit_order": pallas_visit.visit_order.launches}}),
+        "philox_uniform": counts.get("kernel.philox_uniform", 0),
+        "fused_shadow_chunk": counts.get("kernel.fused_shadow", 0),
+        "visit_order": counts.get("kernel.visit_order", 0)}}),
         file=sys.stderr, flush=True)

@@ -135,7 +135,7 @@ from torch.profiler import ProfilerActivity, profile
 from c_raytracer_tpu_torch import _native
 from c_raytracer_tpu_torch.accel import make_intersector, reorder_scene
 from c_raytracer_tpu_torch.accel import pallas_visit
-from c_raytracer_tpu_torch.core import rng
+from c_raytracer_tpu_torch.core import rng, tracing
 from c_raytracer_tpu_torch.geometry import device_scene
 from c_raytracer_tpu_torch.render import (RenderConfig, fused_shadow,
                                           integrator, shading)
@@ -384,6 +384,32 @@ def compare_fused(u, px, scal_f, n_valid, kw) -> float:
     return err
 
 
+class KernelCount:
+    """A kernel's calls in this process, from the port's counter
+    ``kernel.<name>`` (core/tracing.py), read and reset as the launch
+    attribute of the kernel wrappers once was: setting ``launches`` to 0
+    turns the counters on and starts every kernel's count over."""
+
+    def __init__(self, counter: str):
+        self.counter = counter
+
+    @property
+    def launches(self) -> int:
+        return tracing.totals().get(self.counter, 0)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        if n:
+            raise ValueError("a launch count starts over at 0 only")
+        tracing.reset()
+        tracing.enable()
+
+
+KERNELS = {"philox_uniform": KernelCount("kernel.philox_uniform"),
+           "fused_shadow_chunk": KernelCount("kernel.fused_shadow"),
+           "visit_order": KernelCount("kernel.visit_order")}
+
+
 def record(module, name: str, run, keep) -> list:
     """Run ``run()`` with ``module.name`` wrapped: each call's arguments
     go through ``keep(*args, **kwargs)``, and what it returns, unless None,
@@ -397,8 +423,6 @@ def record(module, name: str, run, keep) -> list:
             calls.append(rec)
         return real(*args, **kwargs)
 
-    # the wrapper counts its launches on the module's name, now this one
-    recording.launches = 0
     setattr(module, name, recording)
     try:
         run()
@@ -833,8 +857,8 @@ def gi_phases(sc, gsc, dev, seed, gen, n_sm, op_weights) -> dict:
               f"bit-equal at V={GLASS_LISTS}")
 
     # -- phase 21: dense 1024x1024 path GI, frame and fwd+bwd -------------
-    dense_fns = {"philox_uniform": rng.philox_uniform,
-                 "fused_shadow_chunk": fused_shadow.fused_chunk}
+    dense_fns = {"philox_uniform": KERNELS["philox_uniform"],
+                 "fused_shadow_chunk": KERNELS["fused_shadow_chunk"]}
     render = make_renderer(sc.static, GI_CFG, 1024, 1024, device=dev,
                            with_stats=True)
     img, z, st, secs, launches, peak = time_frames(
@@ -889,8 +913,8 @@ def gi_phases(sc, gsc, dev, seed, gen, n_sm, op_weights) -> dict:
 
     # -- phase 23: the flagship, glass 64x64 path GI host-tiled -----------
     fstatic = cap_lights(gsc, FLAGSHIP_LIGHTS)
-    glass_fns = {"philox_uniform": rng.philox_uniform,
-                 "visit_order": pallas_visit.visit_order}
+    glass_fns = {"philox_uniform": KERNELS["philox_uniform"],
+                 "visit_order": KERNELS["visit_order"]}
     hrender = make_host_tiled_renderer(fstatic, FLAGSHIP_CFG, GLASS_RES,
                                        GLASS_RES, device=dev,
                                        with_stats=True)
@@ -1006,12 +1030,12 @@ def big_list_phase(mesh, glass, glass_rec, gsc, dev, gen, n_sm, seed):
             timing[(name, v)] = rec
     # a glass frame at bvh_visits=512 (20 light samples: the closest-hit
     # calls do not depend on the count) for its launches a frame
-    pallas_visit.visit_order.launches = 0
+    KERNELS["visit_order"].launches = 0
     make_renderer(with_lights(gsc, 20), RenderConfig(bvh_visits=512),
                   GLASS_LAUNCH_RES, GLASS_LAUNCH_RES, device=dev)(
         gsc.params, rng.PhiloxSampler(seed, dev))
     torch.cuda.synchronize()
-    n512 = pallas_visit.visit_order.launches
+    n512 = KERNELS["visit_order"].launches
     check(n512 > 0 and n512 % 2 == 0, f"V=512 frame launches {n512}")
     phase(24, f"visit-order kernel bit-equal to plain above 256 (ok slots, "
               f"spill max) for aimed rays, with count_max_dist, and grown "
@@ -1050,9 +1074,9 @@ def engine_in_process(args):
     """The engine CLI's ``main`` in this process, its log captured: (exit
     code, log lines, launches by kernel, wall seconds)."""
     from c_raytracer_tpu_torch.cli import engine
-    fns = {"philox_uniform": rng.philox_uniform,
-           "fused_shadow_chunk": fused_shadow.fused_chunk,
-           "visit_order": pallas_visit.visit_order}
+    fns = {"philox_uniform": KERNELS["philox_uniform"],
+           "fused_shadow_chunk": KERNELS["fused_shadow_chunk"],
+           "visit_order": KERNELS["visit_order"]}
     for fn in fns.values():
         fn.launches = 0
     buf = io.StringIO()
@@ -1141,8 +1165,8 @@ def progressive_phase(sc, dev, tmp):
     from c_raytracer_tpu_torch.image import write_tiff_raw
     from c_raytracer_tpu_torch.render import (render_progressive,
                                               render_spp_chunked)
-    fns = {"philox_uniform": rng.philox_uniform,
-           "fused_shadow_chunk": fused_shadow.fused_chunk}
+    fns = {"philox_uniform": KERNELS["philox_uniform"],
+           "fused_shadow_chunk": KERNELS["fused_shadow_chunk"]}
     cfg = RenderConfig()
     ck = f"{tmp}/progressive.tif"
 
@@ -1367,14 +1391,14 @@ REMAT_NAMES = (("occlusion",),
 def timed_frame(render, params, dev, seed):
     """One frame on the card: (seconds, image, z, stats, visit-order
     launches), the launch count set to 0 just before it."""
-    pallas_visit.visit_order.launches = 0
+    KERNELS["visit_order"].launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img, z, st = render(params, rng.PhiloxSampler(seed, dev))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     return (secs, img, z, {k: float(v) for k, v in st.items()},
-            pallas_visit.visit_order.launches)
+            KERNELS["visit_order"].launches)
 
 
 def super_phase(msc, o1, d1, dev, gen, n_sm, seed) -> dict:
@@ -1528,8 +1552,8 @@ def remat_names_phase(gsc, dev, seed) -> dict:
     named)."""
     import warnings
 
-    glass_fns = {"philox_uniform": rng.philox_uniform,
-                 "visit_order": pallas_visit.visit_order}
+    glass_fns = {"philox_uniform": KERNELS["philox_uniform"],
+                 "visit_order": KERNELS["visit_order"]}
     res = REMAT_RES
     fwd = make_renderer(gsc.static, RenderConfig(max_bounces=REMAT_BOUNCES),
                         res, res, device=dev, with_stats=True)
@@ -1601,16 +1625,10 @@ SP_RES = 64                # phase 33's sp frame
 DENSE_STEP_TILE = 1024     # four tiles of the dense step: both px ranks work
 
 
-def launch_counts():
-    return {"philox_uniform": rng.philox_uniform,
-            "fused_shadow_chunk": fused_shadow.fused_chunk,
-            "visit_order": pallas_visit.visit_order}
-
-
 def counted_frame(render, params, dev, seed):
     """One frame: (seconds, image, z, stats, launches), every launch count
     set to 0 just before it."""
-    fns = launch_counts()
+    fns = KERNELS
     for fn in fns.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1727,13 +1745,17 @@ def shard_phase(msc, gsc, o1, d1, dev, gen, n_sm, seed) -> dict:
 
 def _rank_frame(out, name, render, params, device, seed):
     """A warm-up frame, then one timed frame with the launch and
-    collective counts set to 0 just before it, into ``out[name]``."""
-    from c_raytracer_tpu_torch.core import comm
+    collective counts set to 0 just before it, into ``out[name]``: the
+    collectives' calls (``comm.calls``) and host seconds (their
+    ``crt.comm.*`` spans), from the port's counters (core/tracing.py)."""
     render(params, rng.PhiloxSampler(seed, device))
-    comm.reset()
     secs, img, z, st, n = counted_frame(render, params, device, seed)
+    recs = tracing.records()
+    calls = tracing.totals().get("comm.calls", 0)
+    comm_s = sum(r.end - r.start for r in recs
+                 if r.name.startswith("crt.comm.")) / 1e9
     out[name] = dict(img=img.cpu(), z=z.cpu(), stats=st, secs=secs,
-                     launches=n, comm=dict(comm.COUNTS))
+                     launches=n, comm=dict(calls=calls, seconds=comm_s))
 
 
 def _rank_step(out, name, static, params, cfg, mesh, device, seed):
@@ -2148,7 +2170,7 @@ def s5_runs(gsc, dev) -> dict:
             "s5_union_stats": lambda d: s5_union_stats.run(
                 gsc, *S5_ARGS["s5_union_stats"],
                 sampler=rng.PhiloxSampler(0, d), device=d)}
-    fns = launch_counts()
+    fns = KERNELS
     here, launches = {}, {}
     for tool, run in runs.items():
         for fn in fns.values():
@@ -2343,8 +2365,8 @@ def main() -> int:
                            with_stats=True)
     img, z, st, secs, launches, peak = time_frames(
         render, sc.params, rng.PhiloxSampler(args.seed, dev), dev,
-        {"philox_uniform": rng.philox_uniform,
-         "fused_shadow_chunk": fused_shadow.fused_chunk})
+        {"philox_uniform": KERNELS["philox_uniform"],
+         "fused_shadow_chunk": KERNELS["fused_shadow_chunk"]})
     check(all(n > 0 for n in launches.values()), f"launches {launches}")
     check_frame(img, z, 1024, "dense main path")
     rays = st["main_rays"] + st["shadow_rays"] + st["gi_rays"]
@@ -2440,8 +2462,8 @@ def main() -> int:
                             with_stats=True)
     img, z, mst, msecs, mlaunches, mpeak = time_frames(
         mrender, msc.params, rng.PhiloxSampler(args.seed, dev), dev,
-        {"philox_uniform": rng.philox_uniform,
-         "visit_order": pallas_visit.visit_order}, n=MESH_FRAMES)
+        {"philox_uniform": KERNELS["philox_uniform"],
+         "visit_order": KERNELS["visit_order"]}, n=MESH_FRAMES)
     check(all(n > 0 for n in mlaunches.values()), f"launches {mlaunches}")
     check_frame(img, z, MESH_RES, "mesh main path")
     mrays = mst["main_rays"] + mst["shadow_rays"] + mst["gi_rays"]
@@ -2572,8 +2594,8 @@ def main() -> int:
               f"|diff| / scale) {worst}")
 
     # -- phase 12: dense forward+backward at 1024x1024 --------------------
-    dense_fns = {"philox_uniform": rng.philox_uniform,
-                 "fused_shadow_chunk": fused_shadow.fused_chunk}
+    dense_fns = {"philox_uniform": KERNELS["philox_uniform"],
+                 "fused_shadow_chunk": KERNELS["fused_shadow_chunk"]}
     bsecs, bst, blaunch, bpeak, _ = time_fwd_bwd(render, sc.params, dev,
                                                  args.seed, dense_fns)
     brays = bst["main_rays"] + bst["shadow_rays"] + bst["gi_rays"]
@@ -2595,8 +2617,8 @@ def main() -> int:
     phase(12, f"without rematerialisation (remat=False), one fwd+bwd step: "
               f"peak {peak_off / 2**20:.1f} MiB")
     # -- phase 13: mesh forward+backward at 256x256 -----------------------
-    mesh_fns = {"philox_uniform": rng.philox_uniform,
-                "visit_order": pallas_visit.visit_order}
+    mesh_fns = {"philox_uniform": KERNELS["philox_uniform"],
+                "visit_order": KERNELS["visit_order"]}
     # no warm-up step (the budget of the whole run): phase 9's frames
     # warmed the path up; a quarter of its pixels, for the same reason
     srender = make_renderer(msc.static, cfg, MESH_STEP_RES, MESH_STEP_RES,
@@ -2639,12 +2661,12 @@ def main() -> int:
         else:
             # a frame at this budget (20 light samples: the closest-hit
             # calls do not depend on the count) for its launches a frame
-            pallas_visit.visit_order.launches = 0
+            KERNELS["visit_order"].launches = 0
             make_renderer(with_lights(gsc, 20), RenderConfig(bvh_visits=v),
                           GLASS_LAUNCH_RES, GLASS_LAUNCH_RES, device=dev)(
                 gsc.params, rng.PhiloxSampler(args.seed, dev))
             torch.cuda.synchronize()
-            n_launch = pallas_visit.visit_order.launches
+            n_launch = KERNELS["visit_order"].launches
         errs, oks = [], []
         for co, cd in ((gcalls[0][0], gcalls[0][1]), (deep[0], deep[1])):
             n_ok, sp, err = compare_visit(co, cd, g_lo, g_hi, v)
@@ -2709,8 +2731,8 @@ def main() -> int:
     # -- phase 16: the glass stand-in at 64x64 -----------------------------
     grender = make_renderer(gsc.static, gcfg, GLASS_RES, GLASS_RES,
                             device=dev, with_stats=True)
-    glass_fns = {"philox_uniform": rng.philox_uniform,
-                 "visit_order": pallas_visit.visit_order}
+    glass_fns = {"philox_uniform": KERNELS["philox_uniform"],
+                 "visit_order": KERNELS["visit_order"]}
     img, z, gst, gsecs, glaunches, gpeak = time_frames(
         grender, gsc.params, rng.PhiloxSampler(args.seed, dev), dev,
         glass_fns, n=GLASS_FRAMES)
@@ -2733,7 +2755,7 @@ def main() -> int:
                             with_stats=True)
     img, z, est, esecs, elaunches, epeak = time_frames(
         erender, ex_sc.params, rng.PhiloxSampler(args.seed, dev), dev,
-        {"philox_uniform": rng.philox_uniform})
+        {"philox_uniform": KERNELS["philox_uniform"]})
     check(elaunches["philox_uniform"] > 0, f"launches {elaunches}")
     check_frame(img, z, 1024, "example.json 1024")
     erays = est["main_rays"] + est["shadow_rays"] + est["gi_rays"]
