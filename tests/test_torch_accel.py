@@ -42,6 +42,8 @@ from c_raytracer_tpu_torch.geometry import primitives as TG
 from c_raytracer_tpu_torch.render.config import RenderConfig
 from c_raytracer_tpu_torch.scene import make_scene, params_to_torch
 
+pytest_plugins = ("torch_harness",)
+
 FLT_MAX = float(np.finfo(np.float32).max)
 R = 300          # rays per query: one shape, so op-by-op JAX compiles once
 

@@ -28,6 +28,8 @@ from c_raytracer_tpu_torch.image import read_tiff, write_tiff_rgb8
 from c_raytracer_tpu_torch.render import RenderConfig, make_renderer
 from c_raytracer_tpu_torch.scene import load_scene
 
+pytest_plugins = ("torch_harness",)
+
 SCENE = os.path.join(os.path.dirname(__file__), "..", "scenes",
                      "spheres_opaque.json")
 

@@ -31,6 +31,8 @@ from c_raytracer_tpu_torch.scene import named_leaves, params_to_torch
 from test_torch_mesh_render import lit_soup
 from test_torch_union_render import glass_soup
 
+pytest_plugins = ("torch_harness",)
+
 CASES = {
     # (scene, config): 24x16 = 384 px, one tile
     "opaque": ("opaque", dict(max_bounces=2)),

@@ -42,6 +42,8 @@ from c_raytracer_tpu_torch.render import RenderConfig, make_renderer
 from c_raytracer_tpu_torch.scene import make_scene
 from c_raytracer_tpu_torch.scene.convert import named_leaves
 
+pytest_plugins = ("torch_harness",)
+
 RES = 16
 THREADS = 1
 CFG = RenderConfig(max_bounces=2, rounds=4, light_chunk=4, accel="cluster",

@@ -15,6 +15,8 @@ from c_raytracer_tpu_torch.geometry import primitives as TG
 from c_raytracer_tpu_torch.render.camera import primary_rays
 from c_raytracer_tpu_torch.scene import params_to_torch
 
+pytest_plugins = ("torch_harness",)
+
 
 def _scene(seed):
     r = np.random.default_rng(seed)

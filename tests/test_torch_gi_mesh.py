@@ -8,6 +8,8 @@ each file takes about a minute alone on the CPU."""
 from test_torch_gi_render import check_exact
 from test_torch_union_render import glass_soup
 
+pytest_plugins = ("torch_harness",)
+
 
 def test_glass_soup_matches_jax():
     jsc, sc = glass_soup()

@@ -41,6 +41,8 @@ from c_raytracer_tpu_torch.render import shading as TS
 from c_raytracer_tpu_torch.scene import load_scene, make_scene
 from test_torch_union_render import glass_soup_kwargs
 
+pytest_plugins = ("torch_harness",)
+
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 
 

@@ -47,6 +47,8 @@ from test_parallel import _lit_soup
 from test_torch_render import _stand_in
 from test_torch_union_render import compare_frames
 
+pytest_plugins = ("torch_harness",)
+
 EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "scenes",
                        "example.json")
 GI = dict(gi_model="path")

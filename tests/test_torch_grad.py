@@ -51,6 +51,8 @@ from c_raytracer_tpu_torch.scene import (grads_to_numpy, make_scene,
 from test_grad_mesh_refract import _bumpy_mesh_scene
 from test_torch_render import JaxKeySampler, _stand_in
 
+pytest_plugins = ("torch_harness",)
+
 GRAD_RTOL = 1e-4    # of max |g_jax| over each leaf
 # a leaf whose exact gradient is 0, held at the scale of another leaf
 SCALE_OF = {"camera.focal_length": "camera.position"}

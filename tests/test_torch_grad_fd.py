@@ -37,6 +37,8 @@ from test_grad import _set, check_component
 from test_grad_mesh_refract import _glass_sphere_scene
 from test_torch_grad import bumpy_kwargs
 
+pytest_plugins = ("torch_harness",)
+
 SCENE = os.path.join(os.path.dirname(__file__), "..", "scenes",
                      "spheres_opaque.json")
 RES = 24

@@ -34,6 +34,8 @@ from c_raytracer_tpu_torch.scene import load_scene, named_leaves
 from test_torch_grad import check_grads
 from test_torch_grad_fd import SCENE, _check, _setup
 
+pytest_plugins = ("torch_harness",)
+
 GI = dict(gi_model="path", samples_per_pixel=2)
 CASES = {
     "gi_dense_stand_in": dict(scene="stand_in", lights=8, res=(12, 12),

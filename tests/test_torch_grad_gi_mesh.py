@@ -10,6 +10,8 @@ import pytest
 from test_torch_grad import check_grads
 from test_torch_grad_stack import LIVE, soup_scenes
 
+pytest_plugins = ("torch_harness",)
+
 CASES = {
     "gi_glass_soup_union": dict(
         scenes=soup_scenes, res=(12, 12), live=LIVE,

@@ -9,6 +9,8 @@ import pytest
 
 from test_torch_grad import CASES, check_grads
 
+pytest_plugins = ("torch_harness",)
+
 
 @pytest.mark.parametrize("case", [c for c in CASES if c.startswith("mesh")])
 def test_grads_match_jax(case, monkeypatch):

@@ -25,6 +25,8 @@ from c_raytracer_tpu_torch.scene import (grads_to_numpy, load_scene,
 from test_torch_render import SCENE
 from test_torch_shading import _chunk_inputs, _grid
 
+pytest_plugins = ("torch_harness",)
+
 
 @pytest.mark.parametrize("shape", ["same", "scalar_exponent"])
 def test_fmax0_powf_vjp_matches_jax(shape):

@@ -31,6 +31,8 @@ from c_raytracer_tpu_torch.scene import load_scene, make_scene
 from test_torch_grad import check_grads
 from test_torch_union_render import glass_soup_kwargs
 
+pytest_plugins = ("torch_harness",)
+
 EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "scenes",
                        "example.json")
 

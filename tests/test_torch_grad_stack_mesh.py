@@ -9,6 +9,8 @@ import pytest
 from test_torch_grad import check_grads
 from test_torch_grad_stack import CASES
 
+pytest_plugins = ("torch_harness",)
+
 
 @pytest.mark.parametrize("case", [c for c in CASES if "cluster" in c])
 def test_grads_match_jax(case, monkeypatch):

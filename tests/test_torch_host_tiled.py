@@ -42,6 +42,8 @@ from test_parallel import _lit_soup
 from test_torch_grad import GRAD_RTOL, SCALE_OF
 from test_torch_render import JaxKeySampler, _stand_in
 
+pytest_plugins = ("torch_harness",)
+
 GI = dict(gi_model="path", samples_per_pixel=2)
 # 16x12 = 192 pixels in tiles of 80: 3 tiles, the last padded by 48
 RES, TILE = (16, 12), 80

@@ -10,6 +10,8 @@ import os
 
 import pytest
 
+pytest_plugins = ("torch_harness",)
+
 PKG = os.path.join(os.path.dirname(__file__), "..", "c_raytracer_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "c_raytracer_tpu")
 

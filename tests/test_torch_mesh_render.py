@@ -39,6 +39,8 @@ from c_raytracer_tpu_torch.render import RenderConfig, make_renderer
 from c_raytracer_tpu_torch.scene import load_scene
 from test_torch_render import EXACT_STATS, JaxKeySampler
 
+pytest_plugins = ("torch_harness",)
+
 MESH_SCENE = os.path.join(os.path.dirname(__file__), "..", "scenes",
                           "meshes_opaque.json")
 SPILLS = ("shadow_spill_max", "visit_spill_max")

@@ -40,6 +40,8 @@ from c_raytracer_tpu_torch.scene import make_scene
 from test_torch_render import JaxKeySampler
 from test_torch_sharded import lit_kwargs
 
+pytest_plugins = ("torch_harness",)
+
 RES = 16
 
 

@@ -30,6 +30,8 @@ from c_raytracer_tpu_torch.scene.convert import named_leaves
 from test_torch_parallel import RES, lit, npy
 from test_torch_render import JaxKeySampler
 
+pytest_plugins = ("torch_harness",)
+
 GRAD_RTOL = 1e-4
 SCALE_OF = {"camera.focal_length": "camera.position"}
 

@@ -30,6 +30,8 @@ from c_raytracer_tpu_torch.image import quantize_rgb8, read_tiff
 from c_raytracer_tpu_torch.image import write_tiff_raw, write_tiff_rgb8
 from c_raytracer_tpu_torch.postprocess import ops as P
 
+pytest_plugins = ("torch_harness",)
+
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 RAW1 = os.path.join(GOLDEN_DIR, "scene1_96_raw.tif")
 RAW3 = os.path.join(GOLDEN_DIR, "scene3_96_raw.tif")

@@ -39,6 +39,8 @@ from c_raytracer_tpu_torch.scene import load_scene
 from test_torch_render import SCENE, JaxKeySampler, _stand_in
 from test_torch_union_render import glass_soup
 
+pytest_plugins = ("torch_harness",)
+
 
 class _Scene:
     def __init__(self, static, params):

@@ -41,6 +41,8 @@ from c_raytracer_tpu_torch.scene import (make_scene, named_leaves,
 from test_torch_grad import (GRAD_RTOL, SCALE_OF, CountQueries, jax_grads,
                              port_grads)
 
+pytest_plugins = ("torch_harness",)
+
 RES = (8, 8)
 BASE = dict(max_bounces=2, light_chunk=8)
 NAMED = [("occlusion", "shadow_samples"), ("occlusion", "shade_terms"),

@@ -33,6 +33,8 @@ from c_raytracer_tpu_torch.render import RenderConfig, make_renderer
 from c_raytracer_tpu_torch.render.integrator import GI_TAG
 from c_raytracer_tpu_torch.scene import load_scene
 
+pytest_plugins = ("torch_harness",)
+
 SCENE = os.path.join(os.path.dirname(__file__), "..", "scenes",
                      "spheres_opaque.json")
 EXACT_STATS = ("main_rays", "shadow_rays", "gi_rays", "children_pushed")

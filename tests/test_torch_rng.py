@@ -12,6 +12,8 @@ from scipy import stats
 
 from c_raytracer_tpu_torch.core import rng
 
+pytest_plugins = ("torch_harness",)
+
 
 def _words(*vals):
     return [torch.tensor([v], dtype=torch.int64) for v in vals]

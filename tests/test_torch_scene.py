@@ -13,6 +13,8 @@ from c_raytracer_tpu.scene import make_scene as jax_make_scene
 from c_raytracer_tpu_torch.scene import load_scene, make_scene, params_to_torch
 from c_raytracer_tpu_torch.scene.loader import SceneError
 
+pytest_plugins = ("torch_harness",)
+
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 
 

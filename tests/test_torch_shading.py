@@ -20,6 +20,8 @@ from c_raytracer_tpu_torch.render import fused_shadow
 from c_raytracer_tpu_torch.scene import params_to_torch
 from c_raytracer_tpu_torch.textures import texture_color_soa
 
+pytest_plugins = ("torch_harness",)
+
 
 def _grid():
     bases = np.array([-2.5, -1.0, -0.7, -0.0, 0.0, 1e-30, 0.3, 0.999, 1.0,

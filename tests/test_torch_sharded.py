@@ -42,6 +42,8 @@ from c_raytracer_tpu_torch.render.config import RenderConfig
 from c_raytracer_tpu_torch.scene import make_scene, params_to_torch
 from test_torch_distributed import lit_kwargs
 
+pytest_plugins = ("torch_harness",)
+
 R = 257   # rays per query
 
 

@@ -40,6 +40,8 @@ from c_raytracer_tpu_torch.scene import params_to_torch
 from test_torch_accel import _shadow_inputs, packs, rays, soup, t
 from test_torch_union_render import glass_soup
 
+pytest_plugins = ("torch_harness",)
+
 
 @pytest.fixture(autouse=True)
 def _jax_op_by_op():

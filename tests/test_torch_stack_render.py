@@ -21,6 +21,8 @@ from c_raytracer_tpu_torch.render import make_renderer
 from c_raytracer_tpu_torch.scene import load_scene
 from test_torch_union_render import compare_frames
 
+pytest_plugins = ("torch_harness",)
+
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 EXAMPLE = os.path.join(SCENES, "example.json")
 GLASS = os.path.join(SCENES, "meshes_glass.json")

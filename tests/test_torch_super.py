@@ -46,6 +46,8 @@ from c_raytracer_tpu_torch.render import RenderConfig, make_renderer
 from c_raytracer_tpu_torch.scene import make_scene
 from test_torch_union_render import STACK_STATS, compare_frames
 
+pytest_plugins = ("torch_harness",)
+
 FLT_MAX = float(np.finfo(np.float32).max)
 
 

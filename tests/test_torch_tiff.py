@@ -15,6 +15,8 @@ import pytest
 from c_raytracer_tpu.image import tiff as jax_tiff
 from c_raytracer_tpu_torch.image import tiff
 
+pytest_plugins = ("torch_harness",)
+
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
 

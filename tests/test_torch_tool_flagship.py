@@ -50,6 +50,8 @@ from c_raytracer_tpu_torch.tools import flagship_s5 as fs
 from test_torch_render import JaxKeySampler
 from test_torch_union_render import glass_soup
 
+pytest_plugins = ("torch_harness",)
+
 RES, SPP, CHUNKS, LIGHTS = 8, 2, 2, 2
 TRAIN_RES, STEPS = 8, 2
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")

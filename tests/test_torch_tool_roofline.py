@@ -32,6 +32,8 @@ import torch
 
 from c_raytracer_tpu_torch.tools import roofline as port
 
+pytest_plugins = ("torch_harness",)
+
 JAX_TOOL = os.path.join(os.path.dirname(__file__), "..", "tools",
                         "profiling", "roofline.py")
 SMALL = 4096

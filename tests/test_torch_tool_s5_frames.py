@@ -42,6 +42,8 @@ from c_raytracer_tpu_torch.tools import s5_trunc_sweep, s5_union_bench
 from test_torch_tool_s5_queries import shape_of, write_scene
 from test_torch_union_render import glass_soup, glass_soup_kwargs
 
+pytest_plugins = ("torch_harness",)
+
 RES, LIGHTS = 8, 4
 PROFILING = os.path.join(os.path.dirname(__file__), "..", "tools",
                          "profiling")

@@ -40,6 +40,8 @@ from c_raytracer_tpu_torch.scene.stl import save_stl
 from c_raytracer_tpu_torch.tools import s5_diag, s5_union_stats
 from test_torch_union_render import glass_soup, glass_soup_kwargs
 
+pytest_plugins = ("torch_harness",)
+
 RES, LC = 8, 4
 PROFILING = os.path.join(os.path.dirname(__file__), "..", "tools",
                          "profiling")

@@ -43,6 +43,8 @@ from c_raytracer_tpu_torch.scene import load_scene
 from c_raytracer_tpu_torch.tools import bench_scaling
 from test_torch_render import _compare
 
+pytest_plugins = ("torch_harness",)
+
 RES = 16
 JAX_TOOL = os.path.join(os.path.dirname(__file__), "..", "tools",
                         "bench_scaling.py")

@@ -25,6 +25,8 @@ from c_raytracer_tpu_torch.scene import load_scene, make_scene
 from c_raytracer_tpu_torch.scene.convert import named_leaves, params_to_torch
 from test_torch_union_render import glass_soup_kwargs
 
+pytest_plugins = ("torch_harness",)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DENSE = os.path.join(ROOT, "scenes", "spheres_opaque.json")
 DENSE_CFG = RenderConfig(tile_size=128)          # 16² in two tiles

@@ -8,6 +8,8 @@ import pytest
 
 from test_torch_union_render import check_glass_soup
 
+pytest_plugins = ("torch_harness",)
+
 
 @pytest.mark.parametrize("mode", ["per_ray", "stack_of_2"])
 def test_glass_soup_matches_jax(mode):

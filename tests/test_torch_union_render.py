@@ -38,6 +38,8 @@ from c_raytracer_tpu_torch.render import RenderConfig, make_renderer
 from c_raytracer_tpu_torch.scene import make_scene
 from test_torch_render import EXACT_STATS, JaxKeySampler
 
+pytest_plugins = ("torch_harness",)
+
 STACK_STATS = EXACT_STATS + ("dropped", "shadow_spill_max", "visit_spill_max")
 
 

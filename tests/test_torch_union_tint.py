@@ -26,6 +26,8 @@ from c_raytracer_tpu_torch.render import RenderConfig, make_renderer
 from c_raytracer_tpu_torch.scene import make_scene
 from test_torch_union_render import compare_frames, glass_soup_kwargs
 
+pytest_plugins = ("torch_harness",)
+
 KW = dict(max_bounces=2, light_chunk=8, accel="cluster")
 
 

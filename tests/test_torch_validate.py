@@ -48,6 +48,8 @@ from test_torch_visit_split import (FLT_MAX, boxes,
                                     duplicate_at_boundaries, kernel_model,
                                     rays, slab)
 
+pytest_plugins = ("torch_harness",)
+
 MESH = os.path.join(os.path.dirname(__file__), "..", "scenes",
                     "meshes_opaque.json")
 # the soup's budgets starved so that every count spills: 4 closest-hit

@@ -20,6 +20,8 @@ import torch
 
 from c_raytracer_tpu_torch.accel import pallas_visit as PV
 
+pytest_plugins = ("torch_harness",)
+
 F32 = np.float32
 FLT_MAX = F32(PV.FLT_MAX)
 
