@@ -3,8 +3,8 @@
 At first use, nvcc compiles each ``csrc/*.cu`` into a shared library of its
 own for ``sm_90a`` with a plain C interface, which ``ctypes`` loads; the
 compilers of all sources run at the same time, so the build waits only for
-the longest (5.2 s for the three sources on the 8-core host of an H100,
-against 10.0 s for one nvcc over all of them).  Each library lands in
+the longest (5.2 s for three sources on the 8-core host of an H100, against
+10.0 s for one nvcc over all of them).  Each library lands in
 ``_build/`` (listed in ``.gitignore``) under a name that carries a hash of
 its source and the flags, so an edited source rebuilds.  Nothing is built
 or loaded when this module is imported.
@@ -53,6 +53,11 @@ _SIGNATURES = {
     # (o, d, lo, hi, count_max_dist or NULL, cids, entry, spill, R, K,
     #  V_total, col0, V, cluster, warps, slice, stream)
     "crt_visit_order": ("visit_order.cu", (_PTR,) * 8 + (_INT,) * 8 + (_PTR,)),
+    # (origin, cids, ok, d, md, ex, blk, slot or NULL, blocked_in, counts_in
+    #  or NULL, blocked_out, counts_out or NULL, P, V, n_steps, S, F, C,
+    #  gid0, n_slots, stream)
+    "crt_union_sweep": ("union_sweep.cu", (_PTR,) * 12 + (_INT,) * 8
+                        + (_PTR,)),
     # the roofline probes (tools/roofline.py): (x, y, n, stream),
     # (x, y, n, k, op, stream), (tbl, idx_in, idx_out, sums or NULL, R,
     # width, stream)

@@ -17,7 +17,8 @@ one conservative visit list per pixel (``shadow_visit_order``), a
 per-pixel shortlist of candidate triangles (``shadow_shortlist``), and
 every light sample streamed against that shortlist
 (``any_hit_tint_shortlist``), or against the visited blocks when the
-shortlist is off (``any_hit_tint_shared``).
+shortlist is off (``any_hit_tint_shared``, whose visit loop is kernel 4,
+``union_sweep.union_visits``).
 
 Each function keeps the JAX function's semantics and fold order.  Every
 selection the JAX package makes with ``lax.top_k`` or with its iterative
@@ -72,7 +73,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from c_raytracer_tpu_torch.accel import pallas_visit
+from c_raytracer_tpu_torch.accel import pallas_visit, union_sweep
 from c_raytracer_tpu_torch.core import tracing
 from c_raytracer_tpu_torch.core import v3 as v3m
 from c_raytracer_tpu_torch.geometry.primitives import slot_counts, tint_slots
@@ -849,28 +850,23 @@ def _stack_chunks(chunks):
 
 def any_hit_tint_shared(cs: ClusterSet, origin, cids, ok, dirs_fn, nchunks,
                         acc, *, dead_skip: bool = False, steps=None):
-    """Shared-origin soft-shadow sweep, visits outer and sample chunks
-    inner: each visited block is gathered once per pixel and every sample
-    chunk streams through it (the ``bvh_shadow_shortlist=0`` route).
-    Arguments and accumulators as in any_hit_tint_shortlist, with
-    cids/ok (P, V) from shadow_visit_order.  ``steps``: the counter
-    (core/tracing.py) that the visit steps run add to, or None."""
-    C = cs.blk.shape[2]
-    lanes = torch.arange(C, device=origin.device)
-    chunks = [_chunk_of(acc, chunk_i) for chunk_i in range(nchunks)]
+    """Shared-origin soft-shadow sweep over the visited blocks (the union
+    sweep's blocks and the ``bvh_shadow_shortlist=0`` route): each sample
+    chunk runs every visit slot of every pixel in one call of
+    ``union_sweep.union_visits`` (kernel 4 on the card).  Arguments and
+    accumulators as in any_hit_tint_shortlist, with cids/ok (P, V) from
+    a visit order.  ``steps``: the counter (core/tracing.py) that the
+    visit steps run add to, or None."""
     n_steps = _visit_limit(ok, dead_skip)
     if steps:
         tracing.count(steps, n_steps)
-    for v in range(n_steps):
-        cid = cids[:, v]
-        live = ok[:, v]
-        blk = cs.blk[cid]                                  # (P, F, C)
-        gid = cs.gid0 + cid[:, None] * C + lanes
-        for chunk_i in range(nchunks):
-            d, max_dist, exclude_gid = dirs_fn(chunk_i)
-            t, hit = _mt_block_multi(blk, origin, d)       # (P, lc, C)
-            in_range = (hit & live[:, None, None] & (t < max_dist[..., None])
-                        & (gid[:, None, :] != exclude_gid[..., None]))
-            chunks[chunk_i] = _fold_blockers(cs, chunks[chunk_i], in_range,
-                                             blk, gid[:, None], -1)
+    cids, ok = cids.contiguous(), ok.contiguous()
+    chunks = []
+    for chunk_i in range(nchunks):
+        d, max_dist, exclude_gid = dirs_fn(chunk_i)
+        sub = _chunk_of(acc, chunk_i)
+        sub = (tuple(a.contiguous() for a in sub) if isinstance(sub, tuple)
+               else sub.contiguous())
+        chunks.append(union_sweep.union_visits(
+            cs, origin, cids, ok, n_steps, d, max_dist, exclude_gid, sub))
     return _stack_chunks(chunks)

@@ -236,10 +236,12 @@ def main(argv=None) -> int:
                 printf_log("Shadow sweep exhaustive (spill 0).")
             counts = tracing.totals()
             printf_log("Kernel launches: philox_uniform %d, "
-                       "fused_shadow_chunk %d, visit_order %d.",
+                       "fused_shadow_chunk %d, visit_order %d, "
+                       "union_sweep %d.",
                        counts.get("kernel.philox_uniform", 0),
                        counts.get("kernel.fused_shadow", 0),
-                       counts.get("kernel.visit_order", 0))
+                       counts.get("kernel.visit_order", 0),
+                       counts.get("kernel.union_sweep", 0))
             printf_log("Host counters: %s.", ", ".join(
                 f"{k} {v}" for k, v in sorted(counts.items())
                 if not k.startswith("kernel.")))

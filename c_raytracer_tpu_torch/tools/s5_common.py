@@ -65,5 +65,6 @@ def print_launches() -> None:
     print(json.dumps({"launches": {
         "philox_uniform": counts.get("kernel.philox_uniform", 0),
         "fused_shadow_chunk": counts.get("kernel.fused_shadow", 0),
-        "visit_order": counts.get("kernel.visit_order", 0)}}),
+        "visit_order": counts.get("kernel.visit_order", 0),
+        "union_sweep": counts.get("kernel.union_sweep", 0)}}),
         file=sys.stderr, flush=True)

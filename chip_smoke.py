@@ -81,7 +81,12 @@ s5_trunc_sweep 16 2, s5_union_bench 16 8), each line of its JAX script
 there and finite, with their kernels' launches; s5_diag and
 s5_union_stats also in this process, every count card against CPU.  Its
 runs, phase 37 and phase 36's own card against CPU forward go beside
-phase 36's flagship tool.
+phase 36's flagship tool.  Phase 39 drives kernel 4, the union shadow
+sweep's visit loop (csrc/union_sweep.cu): bit-equal to the plain loop,
+blocked and counts, on every union-block call of a 32x32 glass frame at
+the glass32.frame cell's budgets, one launch per union block, and its
+device ms on the frame's call of most live visits beside its bound and
+the plain loop's.
 To fit the time limit the flagship runs at 2 bounces (its grads at 1
 and 8x8), the mesh path times 2 frames and its step runs at 256x256, the
 glass path times 1 frame and its 16x16 grads run at 2 bounces, phase 31
@@ -340,14 +345,15 @@ def fused_bound(samples: int, P: int, live: int, n_scal: int, ns: int,
 
 
 def time_line(what: str, dev: list[float], bound: tuple[float, str],
-              **others) -> dict:
-    """Print one timing line; return its numbers."""
+              phase_n: int = 10, **others) -> dict:
+    """Print one timing line (tagged phase ``phase_n``); return its
+    numbers."""
     rec = {"device_ms": mean(dev), "device_runs": dev, "bound_ms": bound[0],
            "bound_by": bound[1], "share_of_bound": bound[0] / mean(dev),
            **others}
     extra = "; ".join(f"{k} {v:.6f}" if isinstance(v, float) else
                       f"{k} {v}" for k, v in others.items())
-    print(f"[phase 10] {what}: device ms {[round(x, 6) for x in dev]} mean "
+    print(f"[phase {phase_n}] {what}: device ms {[round(x, 6) for x in dev]} mean "
           f"{mean(dev):.6f}; bound {bound[0]:.6f} ms ({bound[1]}), share "
           f"{bound[0] / mean(dev):.3f}; {extra}", flush=True)
     return rec
@@ -407,7 +413,8 @@ class KernelCount:
 
 KERNELS = {"philox_uniform": KernelCount("kernel.philox_uniform"),
            "fused_shadow_chunk": KernelCount("kernel.fused_shadow"),
-           "visit_order": KernelCount("kernel.visit_order")}
+           "visit_order": KernelCount("kernel.visit_order"),
+           "union_sweep": KernelCount("kernel.union_sweep")}
 
 
 def record(module, name: str, run, keep) -> list:
@@ -914,7 +921,8 @@ def gi_phases(sc, gsc, dev, seed, gen, n_sm, op_weights) -> dict:
     # -- phase 23: the flagship, glass 64x64 path GI host-tiled -----------
     fstatic = cap_lights(gsc, FLAGSHIP_LIGHTS)
     glass_fns = {"philox_uniform": KERNELS["philox_uniform"],
-                 "visit_order": KERNELS["visit_order"]}
+                 "visit_order": KERNELS["visit_order"],
+                 "union_sweep": KERNELS["union_sweep"]}
     hrender = make_host_tiled_renderer(fstatic, FLAGSHIP_CFG, GLASS_RES,
                                        GLASS_RES, device=dev,
                                        with_stats=True)
@@ -1553,7 +1561,8 @@ def remat_names_phase(gsc, dev, seed) -> dict:
     import warnings
 
     glass_fns = {"philox_uniform": KERNELS["philox_uniform"],
-                 "visit_order": KERNELS["visit_order"]}
+                 "visit_order": KERNELS["visit_order"],
+                 "union_sweep": KERNELS["union_sweep"]}
     res = REMAT_RES
     fwd = make_renderer(gsc.static, RenderConfig(max_bounces=REMAT_BOUNCES),
                         res, res, device=dev, with_stats=True)
@@ -2265,6 +2274,97 @@ def s5_tools_phase(gsc, dev, runs: dict) -> dict:
     return dict(launches=launches, lines=lines)
 
 
+UNION_RES = 32             # phase 39: the glass32.frame cell's frame
+# float operations of one triangle-sample test of kernel 4 besides its
+# division (h 9, a 5, the parallel test 3, the select 1, u 6, w 6, t 1, the
+# hit test 6, t < md 1), and of the per-triangle terms s, q, tnum (14)
+UNION_OPS_PER_TEST = 38
+UNION_OPS_PER_TRIANGLE = 14
+
+
+def union_bound(call, op_weights) -> tuple[float, str]:
+    """Kernel 4's bound on one call: every sample of each live visit
+    tested against the cluster's C triangles, the division weighed as
+    phase 10's roofline chain measured it; bytes, each input read once
+    (the distinct clusters' rows among them) and each output written
+    once."""
+    cs, origin, cids, ok, n_steps, d, md, ex, acc = call
+    K, F, C = cs.blk.shape
+    P, S = md.shape
+    live = ok[:, :n_steps]
+    visits = int(live.sum())
+    clusters = int(torch.unique(cids[:, :n_steps][live]).numel())
+    n_slots = cs.n_slots if cs.has_transp else 0
+    ops = visits * C * (S * (UNION_OPS_PER_TEST + op_weights["div"])
+                        + UNION_OPS_PER_TRIANGLE)
+    acc_bytes = P * S * (1 + 2 * n_slots)
+    need = (P * 12 + cids.numel() * 9 + P * S * 24 + 2 * acc_bytes
+            + clusters * C * (4 * F + (8 if cs.has_transp else 0)))
+    return bound_ms(need, ops)
+
+
+def union_sweep_phase(gsc, dev, seed, op_weights) -> dict:
+    """Phase 39: kernel 4 on every union-block call of one 32x32 glass
+    frame at the glass32.frame cell's budgets (bvh_visits 88,
+    bvh_shadow_visits 400, 100 lights): blocked and counts bit-equal to
+    the plain loop on the card, its launches equal to the frame's
+    union_blocks, and on the call of most live visits its device ms
+    beside its bound and the plain loop's."""
+    from c_raytracer_tpu_torch.accel import union_sweep
+    render = make_renderer(gsc.static, RenderConfig(**GLASS_TUNED),
+                           UNION_RES, UNION_RES, device=dev)
+
+    def keep(cs, origin, cids, ok, n_steps, d, md, ex, acc):
+        return (cs, origin.clone(), cids.clone(), ok.clone(), n_steps,
+                d.clone(), md.clone(), ex.clone(),
+                tuple(a.clone() for a in acc) if isinstance(acc, tuple)
+                else acc.clone())
+
+    def frame():
+        render(gsc.params, rng.PhiloxSampler(seed, dev))
+        torch.cuda.synchronize()
+
+    KERNELS["union_sweep"].launches = 0
+    calls = record(union_sweep, "union_visits", frame, keep)
+    counts = tracing.totals()
+    launches = KERNELS["union_sweep"].launches
+    check(len(calls) > 0 and launches == counts.get("union_blocks")
+          == len(calls), f"kernel.union_sweep launches {launches}, "
+          f"union_blocks {counts.get('union_blocks')}, calls {len(calls)}")
+    n_blocked = n_counted = 0
+    for i, call in enumerate(calls):
+        got = union_sweep.union_visits(*call)
+        want = union_sweep.union_visits_reference(*call)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for name, a, b in zip(("blocked", "counts"), got, want):
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"union call {i}: kernel 4's {name} != the plain loop's")
+        n_blocked += int(want[0].sum())
+        if len(want) > 1:
+            n_counted += int(want[1].sum(dtype=torch.int64))
+    big = max(calls, key=lambda c: int(c[3][:, :c[4]].sum()))
+    P, S = big[6].shape
+    rec = time_line(
+        f"union sweep (kernel 4), the frame's call of most live visits "
+        f"P={P} S={S} n_steps={big[4]} C={big[0].blk.shape[2]}",
+        [device_ms(lambda: union_sweep.union_visits(*big)),
+         device_ms(lambda: union_sweep.union_visits(*big))],
+        union_bound(big, op_weights), phase_n=39,
+        plain_ms=device_ms(
+            lambda: union_sweep.union_visits_reference(*big), 1),
+        live_visits=int(big[3][:, :big[4]].sum()))
+    phase(39, f"union sweep kernel bit-equal to the plain loop on all "
+              f"{len(calls)} union-block calls of a {UNION_RES}x{UNION_RES} "
+              f"glass frame at {GLASS_TUNED} (blocked samples {n_blocked}, "
+              f"counts {n_counted}); kernel.union_sweep launches "
+              f"{launches} == union_blocks; union_steps "
+              f"{counts.get('union_steps')}")
+    return dict(rec, launches=launches, calls=len(calls),
+                union_steps=counts.get("union_steps"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2732,7 +2832,8 @@ def main() -> int:
     grender = make_renderer(gsc.static, gcfg, GLASS_RES, GLASS_RES,
                             device=dev, with_stats=True)
     glass_fns = {"philox_uniform": KERNELS["philox_uniform"],
-                 "visit_order": KERNELS["visit_order"]}
+                 "visit_order": KERNELS["visit_order"],
+                 "union_sweep": KERNELS["union_sweep"]}
     img, z, gst, gsecs, glaunches, gpeak = time_frames(
         grender, gsc.params, rng.PhiloxSampler(args.seed, dev), dev,
         glass_fns, n=GLASS_FRAMES)
@@ -2832,6 +2933,9 @@ def main() -> int:
 
     # -- phase 38: the scene5 diagnostics ---------------------------------
     s5 = s5_tools_phase(gsc, dev, fl["beside"])
+
+    # -- phase 39: kernel 4 on a glass frame's union blocks ---------------
+    us = union_sweep_phase(gsc, dev, args.seed, op_weights)
     # each main path's launches, its counts set to 0 just before it ran
     by_path = {"dense_1024_3_frames": launches,
                f"mesh_512_{MESH_FRAMES}_frames": mlaunches,
@@ -2935,7 +3039,18 @@ def main() -> int:
         "frames_by_ranges": shp["frames"], "spill_by_ranges": shp["spill"],
         "collectives_host_ms": rk["comm_ms"],
         "path": f"mesh stand-in {OPT_RES}x{OPT_RES} in 4 stacked triangle "
-                f"ranges, one frame (kernel 3 once a range and call)"}]}),
+                f"ranges, one frame (kernel 3 once a range and call)"}] + [{
+        "name": "union_sweep", "route": "cuda",
+        "source": "c_raytracer_tpu_torch/csrc/union_sweep.cu",
+        "replaces": None, "launches": us["launches"], "max_abs_err": 0.0,
+        "ms": us["device_ms"], "device_ms": us["device_ms"],
+        "plain_ms": us["plain_ms"], "bound_ms": us["bound_ms"],
+        "bound_by": us["bound_by"], "library_ms": None,
+        "launches_per_frame": us["launches"],
+        "launches_by_path": path_launches("union_sweep"),
+        "live_visits": us["live_visits"], "union_steps": us["union_steps"],
+        "path": f"glass stand-in {UNION_RES}x{UNION_RES} at {GLASS_TUNED}, "
+                f"one frame (one launch a union block)"}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,7 +43,7 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 PORT_KERNELS = ("philox_uniform_kernel", "fused_shadow_kernel",
-                "visit_order_kernel")
+                "visit_order_kernel", "union_sweep_kernel")
 
 
 def main() -> None:
