@@ -43,8 +43,9 @@ over ``px``, Monte-Carlo samples over ``sp`` and primitive ranges over
 the ranks, ``launch`` to start ranks on one host, and the multichip dry run
 (``entry.py``).
 
-Nothing is refused: every entry point and ``RenderConfig`` of the JAX
-package runs.
+Nothing is refused: every entry point of the JAX package runs, and so
+does every ``RenderConfig`` field that chooses something on the card
+(``render/config.py`` names the few the port does not take).
 """
 
 __version__ = "0.1.0"

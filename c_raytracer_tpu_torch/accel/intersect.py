@@ -28,8 +28,8 @@ the same opt-ins as the unsharded one (``closest_compact``,
 
 Spans (core/tracing.py): ``crt.intersect.closest``, ``.retest`` and
 ``.shadow`` (``any_counts``, ``shadow_query``) around each query, and
-``crt.intersect.union_block`` around each block of the union sweep, which
-counts ``union_blocks`` and, in traverse.py, ``union_steps``.
+``crt.intersect.union_block`` around the union sweep of each union shadow
+query, which counts ``union_blocks`` and, in traverse.py, ``union_steps``.
 """
 
 from __future__ import annotations
@@ -331,92 +331,38 @@ class Intersector:
             return 0
         return pb
 
-    def _union_compact_block(self, n_pixels: int) -> int:
-        """Pixels a block of the union sweep's compaction (0 = off):
-        ``union_compact`` "auto" takes it from 512 pixels on, "on" at any
-        count that splits into two or more blocks of 32-256 pixels."""
-        mode = self.cfg.union_compact
-        if mode == "off":
-            return 0
-        pb = 256
-        while pb >= 32 and n_pixels % pb:
-            pb //= 2
-        if n_pixels % pb or n_pixels // pb < 2:
-            return 0
-        if mode == "on":
-            return pb
-        return pb if n_pixels >= 512 else 0
-
     def _union_sweep(self, scs, origin_aos, dirs, egid, acc, live):
         """The union shadow sweep of ``shadow_query`` over the cluster set
-        ``scs``: (acc, spill_max).
-
-        "frame" scope (and "auto"): one union list per pixel over all its
+        ``scs``: (acc, spill_max).  One union list per pixel over all its
         samples, and every sample tested against each listed cluster in
-        one step (the JAX package steps chunk by chunk; blocked and counts
-        do not depend on the order).  With compaction the pixels are sorted
-        by list length (a stable sort), swept in blocks that each stop at
-        their own longest list, and put back.  "chunk" scope: a list and a
-        sweep per chunk.  Every option gives the same result."""
+        one step, as one union block.  The JAX package steps chunk by
+        chunk, and its schedules may sweep a list per chunk or the pixels
+        in blocks sorted by list length; blocked and counts depend on none
+        of that, and kernel 4 walks only each pixel's own live slots."""
         P = origin_aos.shape[0]
         nc = len(dirs)
-        uv = self.cfg.resolved_union_visits(scs.has_transp)
+        lc = dirs[0][1].shape[1]
 
-        def dirs_of(ds_, pix=None):
+        def dirs_of(ds_):
             def fn(chunk_i):
                 d, md = ds_[chunk_i]
-                if pix is not None:
-                    d, md = d[pix], md[pix]
                 return d, md, torch.full(md.shape, egid, device=md.device)
             return fn
 
-        def sub(acc, sl):
-            return tuple(a[sl] for a in acc) if isinstance(acc, tuple) \
-                else acc[sl]
-
-        def block(*args, dead_skip):
-            with tracing.span("intersect.union_block"):
-                tracing.count("union_blocks")
-                return traverse.any_hit_tint_shared(
-                    scs, *args, dead_skip=dead_skip, steps="union_steps")
-
-        if self.cfg.union_scope == "chunk" and nc > 1:
-            parts, spill_max = [], torch.zeros((), dtype=torch.int32,
-                                               device=origin_aos.device)
-            for ci in range(nc):
-                one = dirs_of([dirs[ci]])
-                cids, ok, spill = traverse.shadow_union_visit_order(
-                    scs, origin_aos, one, 1, uv, live)
-                parts.append(block(
-                    origin_aos, cids, ok, one, 1,
-                    sub(acc, (slice(None), slice(ci, ci + 1))),
-                    dead_skip=self._dead_skip))
-                spill_max = torch.maximum(spill_max, spill.max())
-            return _cat(parts, 1), spill_max
-
         cids, ok, spill = traverse.shadow_union_visit_order(
-            scs, origin_aos, dirs_of(dirs), nc, uv, live)
+            scs, origin_aos, dirs_of(dirs), nc,
+            self.cfg.resolved_union_visits(scs.has_transp), live)
         # all samples as one chunk: (P, nc·lc, ...)
-        lc = dirs[0][1].shape[1]
         flat = [(torch.cat([d for d, _ in dirs], 1),
                  torch.cat([md for _, md in dirs], 1))]
         acc1 = (tuple(a.reshape((P, 1, nc * lc) + a.shape[3:]) for a in acc)
                 if isinstance(acc, tuple)
                 else acc.reshape(P, 1, nc * lc))
-        pb = self._union_compact_block(P)
-        if not pb:
-            out = block(origin_aos, cids, ok, dirs_of(flat), 1, acc1,
-                        dead_skip=self._dead_skip)
-        else:
-            order = torch.argsort(ok.sum(1), stable=True)
-            parts = []
-            for b0 in range(0, P, pb):
-                pix = order[b0:b0 + pb]
-                parts.append(block(origin_aos[pix], cids[pix], ok[pix],
-                                   dirs_of(flat, pix), 1, sub(acc1, pix),
-                                   dead_skip=True))
-            inv = torch.argsort(order)
-            out = sub(_cat(parts, 0), inv)
+        with tracing.span("intersect.union_block"):
+            tracing.count("union_blocks")
+            out = traverse.any_hit_tint_shared(
+                scs, origin_aos, cids, ok, dirs_of(flat), 1, acc1,
+                dead_skip=self._dead_skip, steps="union_steps")
         out = (tuple(a.reshape((P, nc, lc) + a.shape[3:]) for a in out)
                if isinstance(out, tuple) else out.reshape(P, nc, lc))
         return out, spill.max()
@@ -564,13 +510,6 @@ def _count_copy(exclude_gid) -> None:
     """Count the copy of a host ``exclude_gid`` to the device."""
     if not isinstance(exclude_gid, torch.Tensor):
         tracing.count("sync.exclude_gid")
-
-
-def _cat(parts, dim):
-    """Concatenate accumulators (tensors or tuples of tensors) on ``dim``."""
-    if isinstance(parts[0], tuple):
-        return tuple(torch.cat(p, dim) for p in zip(*parts))
-    return torch.cat(parts, dim)
 
 
 def _query_out(acc, spill_max, pre_counts=None):

@@ -23,12 +23,12 @@ id, with the per-ray spill count (overlaps beyond V) — the body of
   order, so the passes concatenate to the first V of the stable sort.
   The card takes any V up to K, as the plain version does.
 
-The JAX package keeps its kernel behind ``RenderConfig.pallas_visit``
-(default "off"), a decision about its TPU toolchain, and its kernel route
-reports spill 0.  Here the kernel is the visit order on the card whatever
-``pallas_visit`` says: both routes give the same lists, and the kernel
-counts the exact spill of the plain version, ``count_max_dist`` included,
-so the always-on truncation guard stays on.
+The JAX package keeps its kernel behind an opt-in of its ``RenderConfig``
+(default off), a decision about its TPU toolchain, and its kernel route
+reports spill 0.  The port's ``RenderConfig`` has no such field: the
+kernel is the visit order on the card, the two routes give the same
+lists, and the kernel counts the exact spill of the plain version,
+``count_max_dist`` included, so the always-on truncation guard stays on.
 
 Shapes: o, d (R, 3) and lo, hi (K, 3) float32; count_max_dist (R,) or
 None.  Returns cids (R, V) int32, entry (R, V) float32 (FLT_MAX in empty

@@ -260,8 +260,8 @@ def _visit_order(cs: ClusterSet, o, d, visits: int, count_max_dist=None):
     (spill == 0 proves the sweep saw every overlapped cluster); with
     ``count_max_dist`` (R,) only clusters entered before that distance
     count.  Kernel 3 on the card, its plain version on the CPU
-    (accel/pallas_visit.py), whatever ``RenderConfig.pallas_visit`` says:
-    both give the same lists and the exact spill."""
+    (accel/pallas_visit.py): both give the same lists and the exact
+    spill."""
     K = cs.lo.shape[0]
     V = max(1, min(visits, K))   # visits=0 would make the sweep empty
     # selection only: kernel 3 and its plain version never build a graph
@@ -851,7 +851,7 @@ def _stack_chunks(chunks):
 def any_hit_tint_shared(cs: ClusterSet, origin, cids, ok, dirs_fn, nchunks,
                         acc, *, dead_skip: bool = False, steps=None):
     """Shared-origin soft-shadow sweep over the visited blocks (the union
-    sweep's blocks and the ``bvh_shadow_shortlist=0`` route): each sample
+    sweep and the ``bvh_shadow_shortlist=0`` route): each sample
     chunk runs every visit slot of every pixel in one call of
     ``union_sweep.union_visits`` (kernel 4 on the card).  Arguments and
     accumulators as in any_hit_tint_shortlist, with cids/ok (P, V) from

@@ -1,6 +1,6 @@
 """The visit loop of the shared-origin shadow sweep (kernel 4).
 
-``traverse.any_hit_tint_shared`` (the union sweep's blocks, the "shared"
+``traverse.any_hit_tint_shared`` (the union sweep, the "shared"
 shadow mode without a shortlist, each range of a sharded shadow sweep)
 runs, for one chunk of light samples, every visit slot of every pixel:
 gather the visited cluster's packed rows, Möller-Trumbore of the pixel's

@@ -1,11 +1,18 @@
 """Render configuration — the reference's CLI flag surface (main.c:35-53,
 render.c:61-116) as a static dataclass.
 
-The same fields and defaults as ``c_raytracer_tpu.render.config``: -b 10,
+The fields and defaults of ``c_raytracer_tpu.render.config``: -b 10,
 -a 0.01, -s phong, -g ambient, -n 1, -l sqr, -o 1.  The execution-shape
-knobs of the JAX package are accepted so one config drives both packages,
-and each takes the path it takes there, apart from the two opt-ins of its
-Pallas kernels, which the CUDA kernels serve whatever they say.
+knobs of the JAX package take the path they take there, but for five
+fields the port does not have:
+
+* schedules of the union shadow sweep (a list per chunk, pixels swept in
+  blocks sorted by list length) whose results are identical to the one
+  sweep's, and which the card's union kernel (kernel 4, one CUDA block a
+  pixel walking only its own live slots) makes pointless;
+* the opt-ins of two Pallas kernels, the fused shadow chunk and the visit
+  order: the CUDA kernels always take their place;
+* a GI chunk size that no module of either package reads.
 """
 
 from __future__ import annotations
@@ -36,7 +43,6 @@ class RenderConfig:
     stack_size: int = 8             # per-pixel ray stack (stack integrator)
     tile_size: int | None = None    # pixels per wavefront tile; None -> auto
     light_chunk: int = 40           # soft-shadow samples per chunk
-    gi_chunk: int = 1
     tri_chunk: int = 2048
     gi_sample_offset: int = 0
     gi_chunk_weight: int = 1
@@ -54,20 +60,9 @@ class RenderConfig:
     bvh_super_group: int | None = None
     bvh_super_sel: int = 16
 
-    # The JAX package's opt-in for its fused Pallas shadow kernel.  Ignored
-    # here: on CUDA the fused kernel (render/fused_shadow.py) IS the
-    # direct-light path of every scene it can serve.
-    fused_shadow: str = "off"
-
     shadow_mode: str = "auto"
-    union_scope: str = "auto"
-    union_compact: str = "auto"
     closest_compact: str = "off"
     sweep_dead_skip: str = "auto"
-    # The JAX package's opt-in for its Pallas visit-order kernel.  Accepted
-    # with every value and ignored: on CUDA the visit-order kernel
-    # (accel/pallas_visit.py) IS the visit order (both give the same lists).
-    pallas_visit: str = "off"
     bvh_shadow_cluster: int | None = None
 
     # The scene-aware auto policies, as the JAX package resolves them

@@ -15,8 +15,8 @@ material values are gathered from the tiny material tables by index
 (``v3.rows``), the natural GPU form of the JAX package's unrolled selects.
 
 Direct light goes through the fused chunk (render/fused_shadow.py) for every
-emitter it can serve (``fused_eligible``) — the JAX package's
-``fused_shadow`` opt-in does not apply here.  Every other emitter takes the
+emitter it can serve (``fused_eligible``) — the JAX package's opt-in for
+its fused kernel has no counterpart here.  Every other emitter takes the
 chunk loop of the JAX package's non-fused branch: occlusion from the
 intersector's shared-origin sweep (``shadow_query``, cluster scenes) or
 from one ``any_counts`` query per chunk, then shading.  Each chunk's uniforms

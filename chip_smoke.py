@@ -83,8 +83,8 @@ s5_union_stats also in this process, every count card against CPU.  Its
 runs, phase 37 and phase 36's own card against CPU forward go beside
 phase 36's flagship tool.  Phase 39 drives kernel 4, the union shadow
 sweep's visit loop (csrc/union_sweep.cu): bit-equal to the plain loop,
-blocked and counts, on every union-block call of a 32x32 glass frame at
-the glass32.frame cell's budgets, one launch per union block, and its
+blocked and counts, on every union query of a 32x32 glass frame at the
+glass32.frame cell's budgets, one launch per union shadow query, and its
 device ms on the frame's call of most live visits beside its bound and
 the plain loop's.
 To fit the time limit the flagship runs at 2 bounces (its grads at 1
@@ -2304,12 +2304,13 @@ def union_bound(call, op_weights) -> tuple[float, str]:
 
 
 def union_sweep_phase(gsc, dev, seed, op_weights) -> dict:
-    """Phase 39: kernel 4 on every union-block call of one 32x32 glass
-    frame at the glass32.frame cell's budgets (bvh_visits 88,
-    bvh_shadow_visits 400, 100 lights): blocked and counts bit-equal to
-    the plain loop on the card, its launches equal to the frame's
-    union_blocks, and on the call of most live visits its device ms
-    beside its bound and the plain loop's."""
+    """Phase 39: kernel 4 on every union query of one 32x32 glass frame
+    at the glass32.frame cell's budgets (bvh_visits 88,
+    bvh_shadow_visits 400, 100 lights; 20 union shadow queries): blocked
+    and counts bit-equal to the plain loop on the card, its launches
+    equal to the frame's union_blocks (one a query), and on the call of
+    most live visits its device ms beside its bound and the plain
+    loop's."""
     from c_raytracer_tpu_torch.accel import union_sweep
     render = make_renderer(gsc.static, RenderConfig(**GLASS_TUNED),
                            UNION_RES, UNION_RES, device=dev)
@@ -2356,7 +2357,7 @@ def union_sweep_phase(gsc, dev, seed, op_weights) -> dict:
             lambda: union_sweep.union_visits_reference(*big), 1),
         live_visits=int(big[3][:, :big[4]].sum()))
     phase(39, f"union sweep kernel bit-equal to the plain loop on all "
-              f"{len(calls)} union-block calls of a {UNION_RES}x{UNION_RES} "
+              f"{len(calls)} union queries of a {UNION_RES}x{UNION_RES} "
               f"glass frame at {GLASS_TUNED} (blocked samples {n_blocked}, "
               f"counts {n_counted}); kernel.union_sweep launches "
               f"{launches} == union_blocks; union_steps "
@@ -2934,7 +2935,7 @@ def main() -> int:
     # -- phase 38: the scene5 diagnostics ---------------------------------
     s5 = s5_tools_phase(gsc, dev, fl["beside"])
 
-    # -- phase 39: kernel 4 on a glass frame's union blocks ---------------
+    # -- phase 39: kernel 4 on a glass frame's union queries --------------
     us = union_sweep_phase(gsc, dev, args.seed, op_weights)
     # each main path's launches, its counts set to 0 just before it ran
     by_path = {"dense_1024_3_frames": launches,
@@ -3050,7 +3051,7 @@ def main() -> int:
         "launches_by_path": path_launches("union_sweep"),
         "live_visits": us["live_visits"], "union_steps": us["union_steps"],
         "path": f"glass stand-in {UNION_RES}x{UNION_RES} at {GLASS_TUNED}, "
-                f"one frame (one launch a union block)"}]}),
+                f"one frame (one launch a union shadow query)"}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

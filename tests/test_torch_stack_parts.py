@@ -311,11 +311,21 @@ def _query(ix, v3mod, conv, origin, dirs, dist, egid=0, **kw):
                            egid, dirs.shape[0], dirs.shape[2], **kw)
 
 
-def test_union_shadow_query_matches_jax(union_intersectors):
-    """The union ``shadow_query`` of the transparent soup with its kt tint:
-    the light that passes, where(blocked, 0, tint), within rtol 1e-6 of the
-    JAX package's, blocked and the spill equal."""
+@pytest.mark.parametrize("schedule", [{}, dict(union_scope="chunk"),
+                                      dict(union_compact="on"),
+                                      dict(union_compact="off"),
+                                      dict(union_scope="frame",
+                                           union_compact="on")])
+def test_union_shadow_query_matches_jax(schedule, union_intersectors):
+    """The union ``shadow_query`` of the transparent soup with its kt tint,
+    against each union schedule of the JAX package (per-frame or
+    per-chunk lists, pixel compaction on and off): the light that passes,
+    where(blocked, 0, tint), within rtol 1e-6 of the JAX package's,
+    blocked and the spill equal.  With ``live`` the port's live pixels
+    get the results they get without it, bit for bit."""
     jix, tix = union_intersectors
+    jix = dataclasses.replace(jix, cfg=dataclasses.replace(jix.cfg,
+                                                           **schedule))
     origin, dirs, dist, _, _ = _union_inputs()
     jb, jtn, jsp = _query(jix, jv3, jnp.asarray, origin, dirs, dist)
     tb, counts, sp = _query(tix, tv3, t, origin, dirs, dist)
@@ -328,27 +338,11 @@ def test_union_shadow_query_matches_jax(union_intersectors):
                                np.where(np.asarray(jb)[..., None], 0, jt_),
                                rtol=1e-6)
     assert (counts > 0).float().mean() > 0.05 and counts.max() > 1
-
-
-@pytest.mark.parametrize("opts", [dict(union_scope="chunk"),
-                                  dict(union_compact="on"),
-                                  dict(union_compact="off"),
-                                  dict(union_scope="frame",
-                                       union_compact="on")])
-def test_union_options_give_the_same_occlusion(opts, union_intersectors):
-    """Frame and chunk scope, compaction on and off: blocked, counts and
-    spill bit-identical; with ``live`` the live pixels' results too."""
-    _, tix = union_intersectors
-    origin, dirs, dist, _, _ = _union_inputs()
-    ref = _query(tix, tv3, t, origin, dirs, dist)
-    ix = dataclasses.replace(tix, cfg=dataclasses.replace(tix.cfg, **opts))
     live = torch.from_numpy(np.arange(96) % 3 != 0)
-    for kw in ({}, dict(live=live)):
-        out = _query(ix, tv3, t, origin, dirs, dist, **kw)
-        m = live if kw else slice(None)
-        assert torch.equal(out[0][..., m], ref[0][..., m])
-        assert torch.equal(out[1][..., m, :], ref[1][..., m, :])
-        assert int(out[2]) == int(ref[2])
+    lb, lcounts, lsp = _query(tix, tv3, t, origin, dirs, dist, live=live)
+    assert torch.equal(lb[..., live], tb[..., live])
+    assert torch.equal(lcounts[..., live, :], counts[..., live, :])
+    assert int(lsp) == int(sp)
 
 
 @pytest.mark.parametrize("route", [dict(accel="none"),

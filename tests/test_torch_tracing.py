@@ -17,7 +17,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from benchmark import core, program_spans
-from c_raytracer_tpu_torch.accel import reorder_scene, traverse
+from c_raytracer_tpu_torch.accel import intersect, reorder_scene, traverse
 from c_raytracer_tpu_torch.core import tracing
 from c_raytracer_tpu_torch.core.rng import PhiloxSampler
 from c_raytracer_tpu_torch.render import RenderConfig, make_renderer
@@ -30,7 +30,7 @@ pytest_plugins = ("torch_harness",)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DENSE = os.path.join(ROOT, "scenes", "spheres_opaque.json")
 DENSE_CFG = RenderConfig(tile_size=128)          # 16² in two tiles
-GLASS_CFG = RenderConfig(max_bounces=1, union_compact="on")  # 8²: 2 blocks
+GLASS_CFG = RenderConfig(max_bounces=1)          # 8²
 
 # the integrator's stats before they were gated on ``with_stats``: the
 # dense 16² frame and the glass soup's 8² frame at seed 7
@@ -106,8 +106,15 @@ def dense_traced():
 def glass_traced():
     """The glass soup's 8² frame under the profiler: (out, records, the
     (``steps`` counter, visit steps) of each ``any_hit_tint_shared``
-    call, its visit steps computed from its own lists)."""
-    calls = []
+    call, its visit steps computed from its own lists, the number of
+    ``shadow_query`` calls)."""
+    calls, queries = [], []
+
+    def spy_query(real):
+        def shadow_query(self, *a, **k):
+            queries.append(1)
+            return real(self, *a, **k)
+        return shadow_query
 
     def spy(real):
         def shared(cs, origin, cids, ok, dirs_fn, nchunks, acc, *,
@@ -117,9 +124,10 @@ def glass_traced():
             return real(cs, origin, cids, ok, dirs_fn, nchunks, acc,
                         dead_skip=dead_skip, steps=steps)
         return shared
-    with spied(traverse, "any_hit_tint_shared", spy):
+    with spied(traverse, "any_hit_tint_shared", spy), \
+            spied(intersect.Intersector, "shadow_query", spy_query):
         out, recs, _ = traced_frame(glass(), GLASS_CFG, 8)
-    return out, recs, calls
+    return out, recs, calls, len(queries)
 
 
 def ancestors(rec, by_id):
@@ -215,14 +223,16 @@ def test_dense_round_syncs_count_the_any_reads():
 
 
 def test_glass_union_blocks_and_steps():
-    """The glass soup's union sweep in compaction blocks: a span and a
-    ``union_blocks`` count each, ``union_steps`` the slot loop's
+    """The glass soup's union sweep: one block a union shadow query, with
+    a span and a ``union_blocks`` count, ``union_steps`` the slot loop's
     iterations."""
-    _, recs, calls = glass_traced()
+    _, recs, calls, queries = glass_traced()
     by_id = {r.id: r for r in recs}
     counts = tracing.totals(recs)
     blocks = [r for r in recs if r.name == "crt.intersect.union_block"]
-    assert len(blocks) >= 2 and counts["union_blocks"] == len(blocks)
+    assert len(blocks) == queries >= 2
+    assert counts["union_blocks"] == len(blocks) == len(calls)
+    assert len({b.parent for b in blocks}) == len(blocks)
     assert all(s == "union_steps" for s, _ in calls)
     assert counts["union_steps"] == sum(n for _, n in calls) > 0
     for b in blocks:

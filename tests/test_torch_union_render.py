@@ -131,16 +131,13 @@ def test_glass_soup_matches_jax(mode):
 
 
 def test_union_options_render_the_same_frame():
-    """Frame and chunk scope, pixel compaction on and off, per-ray and
-    dense shadows: the same image, bit for bit, and the same stats; a
-    starved union budget reports its spill."""
+    """The union sweep, per-ray and dense shadows: the same image, bit
+    for bit, and the same stats; a starved union budget reports its
+    spill."""
     _, sc = glass_soup()
     frames = {}
     for name, kw in {
-            "frame": {}, "chunk": dict(union_scope="chunk"),
-            "compact_on": dict(union_compact="on"),
-            "compact_off": dict(union_compact="off"),
-            "per_ray": dict(shadow_mode="per_ray"),
+            "frame": {}, "per_ray": dict(shadow_mode="per_ray"),
             "dense": dict(accel="none"),
             "starved": dict(bvh_shadow_visits=2)}.items():
         fn = make_renderer(sc.static, RenderConfig(
@@ -150,7 +147,7 @@ def test_union_options_render_the_same_frame():
         frames[name] = (img, {k: float(v) for k, v in st.items()})
     ref_img, ref_st = frames["frame"]
     assert ref_st["shadow_spill_max"] == 0
-    for name in ("chunk", "compact_on", "compact_off", "per_ray", "dense"):
+    for name in ("per_ray", "dense"):
         img, st = frames[name]
         assert torch.equal(img, ref_img), name
         assert st == ref_st, name
